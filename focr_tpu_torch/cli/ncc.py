@@ -1,0 +1,197 @@
+"""ncc CLI on PyTorch + CUDA — the flags and output of focr_tpu/cli/ncc.py
+(reference ncc.rs:486-542, 788-878), plus --device and --needle-bank.
+
+stdout: decoded text lines (or --csv rows, or --raw hit dumps); stderr: all
+diagnostics. --rust routes to the host differential oracle, exactly like the
+reference's flag switches between the C and Rust kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+import torch
+
+from focr_tpu_torch.fonts.ft import Face, HintingOptions
+from focr_tpu_torch.models.types import BoxSize, NCC_DEFAULT_ALPHABET, RenderOptions
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ncc", description="NCC template-matching OCR (PyTorch + CUDA)"
+    )
+    p.add_argument("-i", "--img", action="extend", nargs="+", default=[], required=True)
+    p.add_argument("-f", "--font", required=True)
+    p.add_argument("-t", "--text-size", type=float, required=True)
+    p.add_argument("--x-bits", type=int, default=0)
+    p.add_argument("--y-bits", type=int, default=0)
+    p.add_argument("--hinting", action="store_true")
+    p.add_argument("--threshold", type=float, default=0.8)
+    p.add_argument("--anchor-threshold", type=float, default=0.95)
+    p.add_argument("--overlap", type=int, default=5)
+    p.add_argument("-a", "--alphabet", default=NCC_DEFAULT_ALPHABET)
+    p.add_argument("--box-size", default="alphabet")
+    p.add_argument("--x-padding", type=int, default=0)
+    p.add_argument("--y-padding", type=int, default=0)
+    p.add_argument("--save-letters", action="store_true")
+    p.add_argument("--rust", action="store_true",
+                   help="use the host differential-oracle kernel instead of the device path")
+    p.add_argument("--engine", choices=["device", "oracle"], default=None,
+                   help="execution tier: device (default) or oracle (NumPy "
+                        "reference). --rust is an alias for oracle.")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="device of the device engine: cuda (the CUDA kernels; "
+                        "default) or cpu (their plain PyTorch versions)")
+    p.add_argument("--needle-bank", default=None, metavar="NPZ",
+                   help="load the needles from a saved bank "
+                        "(fonts/bank.py::save_needle_bank) instead of rendering "
+                        "them with FreeType; its settings must match the flags")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--csv", action="store_true")
+    p.add_argument("--raw", action="store_true")
+    p.add_argument("--strict", action="store_true",
+                   help="fail on the first unreadable page (reference panic semantics); "
+                        "default isolates per-page errors to stderr and continues")
+    return p
+
+
+def _verbose_metrics(face: Face, alphabet: str, text_size: float) -> None:
+    """Font metrics dump (ncc.rs:791-831)."""
+    m = face.metrics
+    to_px = (1.0 / m.units_per_em) * text_size
+    line_space = m.ascent - m.descent + m.line_gap
+    print(
+        f"metrics Metrics {{ units_per_em: {m.units_per_em}, ascent: {m.ascent}, "
+        f"descent: {m.descent}, line_gap: {m.line_gap}, "
+        f"bounding_box: {m.bounding_box} }}",
+        file=sys.stderr,
+    )
+    print(f"ascent  {m.ascent * to_px}px", file=sys.stderr)
+    print(f"descent {m.descent * to_px}px", file=sys.stderr)
+    bb = m.bounding_box
+    print(f"font_bbox size ({bb.width * to_px}, {bb.height * to_px})px", file=sys.stderr)
+    print(f"line_space {line_space} {line_space * to_px}px", file=sys.stderr)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    from focr_tpu_torch.fonts.bank import bank_settings, load_needle_bank
+    from focr_tpu_torch.io.images import load_gray, save_gray
+    from focr_tpu_torch.models.ncc import NccMatcher, _f32
+    from focr_tpu_torch.models.post import (
+        process_hits, process_hits_struct, process_hits_text,
+    )
+    from focr_tpu_torch.utils.device import resolve_device
+
+    hinting = HintingOptions(full=True, size=args.text_size) if args.hinting else HintingOptions()
+    ropts = RenderOptions(size=args.text_size, hinting=hinting)
+    box = BoxSize.parse(args.box_size)
+    engine = args.engine or ("oracle" if args.rust else "device")
+    try:
+        device = resolve_device(args.device) if engine == "device" else torch.device("cpu")
+    except RuntimeError as e:
+        print(f"ncc: error: {e}", file=sys.stderr)
+        return 2
+
+    needles = None
+    if args.needle_bank is not None:
+        needles, saved = load_needle_bank(args.needle_bank)
+        want = bank_settings(args.font, args.alphabet, ropts, box, args.x_bits,
+                             args.y_bits, (args.x_padding, args.y_padding))
+        if saved != want:
+            print(f"ncc: error: {args.needle_bank} was rendered with {saved}, "
+                  f"the flags ask for {want}", file=sys.stderr)
+            return 2
+    # the font itself is opened only when something needs FreeType
+    need_face = needles is None or args.verbose or args.raw or args.save_letters
+    face = Face(args.font) if need_face else None
+    if args.verbose:
+        _verbose_metrics(face, args.alphabet, args.text_size)
+
+    matcher = NccMatcher(
+        face,
+        args.alphabet,
+        ropts,
+        box_size=box,
+        x_bits=args.x_bits,
+        y_bits=args.y_bits,
+        padding=(args.x_padding, args.y_padding),
+        threshold=args.threshold,
+        device=device,
+        needles=needles,
+    )
+
+    if args.save_letters:
+        os.makedirs("letters", exist_ok=True)
+        for nd in matcher.needles:
+            x = int(nd.offset[0] * 1000.0)
+            y = int(nd.offset[1] * 1000.0)
+            # the reference dumps the RAW white-on-black canvas: canvas_to_lum8
+            # (ncc.rs:645 -> ncc.rs:917-923) copies pixels without inverting
+            save_gray(f"letters/{nd.letter}-{x}_{y}.png", nd.pixels)
+
+    get = matcher.get_hits if engine == "device" else matcher.get_hits_oracle
+    if args.raw:
+        assert len(args.img) == 1
+        get(load_gray(args.img[0]), verbose=args.verbose, raw=True, out=sys.stdout)
+        return 0
+
+    errors: list[tuple[int, str]] = []
+    loaded: list[tuple[int, np.ndarray]] = []
+    for i, path in enumerate(args.img):
+        try:
+            loaded.append((i, load_gray(path)))
+        except Exception as e:  # noqa: BLE001 - per-page isolation (§5.3)
+            if args.strict:
+                raise
+            errors.append((i, f"{type(e).__name__}: {e}"))
+            print(f"ERROR {path}: {type(e).__name__}: {e}", file=sys.stderr)
+
+    # the array-form (struct) pipeline skips per-hit object creation; verbose
+    # diagnostics need the object form (per-hit dumps). --csv needs full
+    # per-hit fields, so it post-processes to objects.
+    struct = engine == "device" and not args.verbose
+    pages = [p for _, p in loaded]
+    if engine == "device" and struct and not args.csv:
+        hit_lines = matcher.get_hits_many(
+            pages, struct=True,
+            post=lambda hs: process_hits_text(hs, args.anchor_threshold, args.overlap),
+        )
+    elif engine == "device" and struct:
+        hit_lines = [
+            process_hits_struct(h, args.anchor_threshold, args.overlap)
+            for h in matcher.get_hits_many(pages, struct=True)
+        ]
+    else:
+        hit_lists = (
+            matcher.get_hits_many(pages, verbose=args.verbose)
+            if engine == "device"
+            else [get(p, verbose=args.verbose) for p in pages]
+        )
+        hit_lines = [
+            process_hits(h, args.anchor_threshold, args.overlap, verbose=args.verbose)
+            for h in hit_lists
+        ]
+    lines_by_page = {i: h for (i, _), h in zip(loaded, hit_lines)}
+    pages_out = [(i, lines_by_page.get(i, [])) for i in range(len(args.img))]
+
+    if args.csv:
+        for i, lines in pages_out:
+            for line in lines:
+                for m in line:
+                    cx, cy = m.center
+                    print(
+                        f"{i},{ord(m.letter)},{_f32(cx)},{_f32(cy)},{m.x},{m.y},{m.w},{m.h}"
+                    )
+    else:
+        for _, lines in pages_out:
+            for line in lines:
+                print(line if isinstance(line, str) else "".join(m.letter for m in line))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,516 @@
+"""The ncc template matcher on PyTorch + CUDA.
+
+Counterpart of focr_tpu/models/ncc.py. Per wave of same-shape pages:
+
+  invert -> ink-bbox crop (_ink_crop) -> upload -> per needle-size group:
+  K1 ncc_sweep (candidate bitmask + row counts) -> K2 compact_hits
+  (positions in scan order, sized by the exact count) -> one fetch -> per
+  page: crop -> full-page remap, exact f64 NumPy replay, MAX_MATCHES scan
+  cap (ncc.cpp:222-229) -> hits in reference iteration order (offsets
+  outer, letters inner — ncc.rs:587-655) -> models/post.py.
+
+The device stage is a candidate FILTER: an ε-superset of the reference's
+accept set; the host replay decides every hit exactly, so the output is
+bit-identical to the oracle (oracle/ncc_oracle.py) and to focr_tpu. Waves are
+plain and synchronous; focr_tpu's transport-era machinery (candidate caps and
+redo ladders, wire codecs, pipelined fetch threads, adaptive wave sizing) has
+nothing to do on a local card and is not carried over.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from focr_tpu_torch.fonts.bank import Needle, build_needles
+from focr_tpu_torch.fonts.ft import Face
+from focr_tpu_torch.models.types import MAX_MATCHES, BoxSize, MatchWithLetter, RenderOptions
+from focr_tpu_torch.ops.ncc import word_stride
+from focr_tpu_torch.ops.ncc_kernels import compact_hits, ncc_sweep, sweep_terms
+from focr_tpu_torch.utils.device import resolve_device
+
+WAVE = 8  # pages per device wave
+
+_EMPTY = (
+    np.zeros(0, np.int64),
+    np.zeros(0, np.int64),
+    np.zeros(0, np.float32),
+)
+
+
+@dataclass(frozen=True)
+class HitStruct:
+    """Array-of-hits form of get_hits output (reference iteration order) —
+    the allocation-free fast path for post-processing big corpora."""
+
+    needle_id: np.ndarray  # i32 [N] index into matcher.needles
+    x: np.ndarray  # i64 [N]
+    y: np.ndarray  # i64 [N]
+    sim: np.ndarray  # f32 [N]
+    matcher: "NccMatcher"
+
+    def __len__(self) -> int:  # pragma: no cover - trivial
+        return len(self.x)
+
+    def to_objects(self) -> list[MatchWithLetter]:
+        out: list[MatchWithLetter] = []
+        i = 0
+        N = len(self.x)
+        while i < N:  # hits are grouped by needle (reference iteration order)
+            j = i
+            nid = self.needle_id[i]
+            while j < N and self.needle_id[j] == nid:
+                j += 1
+            out.extend(
+                self.matcher._needle_objects(
+                    int(nid), (self.x[i:j], self.y[i:j], self.sim[i:j])
+                )
+            )
+            i = j
+        return out
+
+
+def _ink_crop(inv: np.ndarray, H: int, W: int, groups) -> tuple | None:
+    """Ink-bbox crop (y0, x0, Hc, Wc) for a stacked inverted wave [*, H, W].
+
+    Hits require a window with Σp > 0, and every such window lies within the
+    ink bounding box expanded by one needle size: windows at local x=1/y=1
+    then map exactly to the leftmost/topmost possible inked full-page
+    windows, and the excluded local x=0/y=0 columns are provably Σp == 0 —
+    or the reference's own x=0/y=0 exclusion when the crop hits the page
+    edge (ncc.cpp:98). This is a device candidate FILTER: per the bit-parity
+    invariant, widening it is safe, narrowing it is a correctness bug — keep
+    the wave and sharded paths on this single implementation. Dims round up
+    to 64 to bound compiled shapes. Returns None for a blank (all-white)
+    wave: zero candidates everywhere, skip the device entirely.
+    """
+    sweepable = [g for g in groups if g.nh < H and g.nw < W]
+    if not sweepable:
+        return (0, 0, H, W)
+    rows_ink = inv.any(axis=(0, 2))
+    if not rows_ink.any():
+        return None
+    cols_ink = inv.any(axis=(0, 1))
+    nz_r = np.flatnonzero(rows_ink)
+    nz_c = np.flatnonzero(cols_ink)
+    nh_m = max(g.nh for g in sweepable)
+    nw_m = max(g.nw for g in sweepable)
+    y0 = max(0, int(nz_r[0]) - nh_m)
+    x0 = max(0, int(nz_c[0]) - nw_m)
+    y1 = min(H, int(nz_r[-1]) + 1 + nh_m)
+    x1 = min(W, int(nz_c[-1]) + 1 + nw_m)
+    Hc = min(H - y0, -(-(y1 - y0) // 64) * 64)
+    Wc = min(W - x0, -(-(x1 - x0) // 64) * 64)
+    return (y0, x0, Hc, Wc)
+
+
+@dataclass(frozen=True)
+class _Group:
+    nh: int
+    nw: int
+    needle_ids: list[int]  # indices into the needle list, original order
+    bank: np.ndarray  # [T, nh, nw] u8
+    s_n: np.ndarray  # [T] i64
+    s2_n: np.ndarray  # [T] i64
+
+
+def _group_needles(needles: list[Needle]) -> list[_Group]:
+    groups: dict[tuple[int, int], list[int]] = {}
+    for i, nd in enumerate(needles):
+        groups.setdefault(nd.pixels.shape, []).append(i)
+    out = []
+    for (nh, nw), ids in groups.items():
+        out.append(
+            _Group(
+                nh=nh,
+                nw=nw,
+                needle_ids=ids,
+                bank=np.stack([needles[i].pixels for i in ids]),
+                s_n=np.array([needles[i].s_n for i in ids], dtype=np.int64),
+                s2_n=np.array([needles[i].s2_n for i in ids], dtype=np.int64),
+            )
+        )
+    return out
+
+
+@dataclass(frozen=True)
+class DeviceGroup:
+    """One size group's needle bank on the device, with the sweep's derived
+    per-needle f32 terms."""
+
+    bank: torch.Tensor  # [T, nh, nw] u8
+    s_n: torch.Tensor  # [T] i64
+    s2_n: torch.Tensor  # [T] i64
+    sn_n: torch.Tensor  # [T] f32 Σn / n
+    rtn: torch.Tensor  # [T] f32 √norm², +inf for zero-variance needles
+    thr_eps: float  # f32(threshold) − f32(ε), exactly representable in f32
+
+    @property
+    def terms(self) -> tuple[torch.Tensor, torch.Tensor, float]:
+        return self.sn_n, self.rtn, self.thr_eps
+
+
+def group_from_numpy(
+    bank: np.ndarray, s_n: np.ndarray, s2_n: np.ndarray, threshold: float,
+    device: torch.device | str,
+) -> DeviceGroup:
+    """Carry one focr_tpu-style size group (numpy bank [T, nh, nw] u8, s_n and
+    s2_n [T] i64) to ``device``, deriving sn_n, rtn and thr−ε exactly as
+    focr_tpu/ops/pallas_ncc.py:309-321 does (f32, from the exact int64
+    norm²)."""
+    bank_t = torch.from_numpy(np.ascontiguousarray(bank, dtype=np.uint8))
+    s_n_t = torch.from_numpy(np.ascontiguousarray(s_n, dtype=np.int64))
+    s2_n_t = torch.from_numpy(np.ascontiguousarray(s2_n, dtype=np.int64))
+    n = bank_t.shape[1] * bank_t.shape[2]
+    sn_n, rtn, thr_eps = sweep_terms(s_n_t, s2_n_t, n, threshold)
+    return DeviceGroup(
+        bank=bank_t.to(device), s_n=s_n_t.to(device), s2_n=s2_n_t.to(device),
+        sn_n=sn_n.to(device), rtn=rtn.to(device), thr_eps=thr_eps,
+    )
+
+
+def exact_similarities(
+    acc: np.ndarray, sp: np.ndarray, s2p: np.ndarray, s_n: int, s2_n: int, n: int
+) -> np.ndarray:
+    """The reference's f64 similarity, computed from exact integers.
+
+    Mirrors ncc.cpp:233-238 (and the precompute ncc.rs:306-312):
+      rnorm_p = 1/sqrt(s2p - sp*sp/n)        [division by n]
+      num     = acc - (s_n*s_p) * (1/n)      [multiplication by 1/n]
+      sim     = num * (rnorm_n * rnorm_p)
+    """
+    nf = np.float64(n)
+    n_recip = np.float64(1.0) / nf
+    s_n64 = np.asarray(s_n, dtype=np.float64)  # scalar or per-candidate array
+    s2_n64 = np.asarray(s2_n, dtype=np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rnorm_n = np.float64(1.0) / np.sqrt(s2_n64 - s_n64 * s_n64 / nf)
+        norm_p = s2p.astype(np.float64) - (sp.astype(np.float64) * sp.astype(np.float64)) / nf
+        rnorm_p = np.float64(1.0) / np.sqrt(norm_p)
+        num = acc.astype(np.float64) - (s_n64 * sp.astype(np.float64)) * n_recip
+        return num * (rnorm_n * rnorm_p)
+
+
+class NccMatcher:
+    """One (font, size, alphabet, offsets, box policy) matching configuration
+    on one device. ``needles``: a bank rendered elsewhere
+    (fonts/bank.py::load_needle_bank); ``face`` may then be None unless raw
+    output needs its metrics."""
+
+    def __init__(
+        self,
+        face: Face | None,
+        alphabet: str,
+        ropts: RenderOptions,
+        box_size: BoxSize = BoxSize.ALPHABET,
+        x_bits: int = 0,
+        y_bits: int = 0,
+        padding: tuple[int, int] = (0, 0),
+        threshold: float = 0.8,
+        device: str | torch.device = "cuda",
+        needles: list[Needle] | None = None,
+    ):
+        self.device = resolve_device(device)
+        self.face = face
+        self.alphabet = alphabet
+        self.ropts = ropts
+        self.threshold = float(threshold)
+        if needles is None:
+            needles = build_needles(face, alphabet, ropts, box_size, x_bits, y_bits, padding)
+        self.needles = needles
+        self.groups = _group_needles(self.needles)
+        self.dev_groups = [
+            group_from_numpy(g.bank, g.s_n, g.s2_n, self.threshold, self.device)
+            for g in self.groups
+        ]
+
+    def get_hits(
+        self, page: np.ndarray, verbose: bool = False, raw: bool = False, out=None,
+    ) -> list[MatchWithLetter]:
+        """Device search + exact host recheck; hits in reference order
+        (get_hits, ncc.rs:544-721)."""
+        return self._collect_page(self._sweep_wave([page])[0], verbose, raw, out)
+
+    def get_hits_many(
+        self, pages: list[np.ndarray], verbose: bool = False, struct: bool = False,
+        post=None,
+    ) -> list:
+        """Every page's hits (HitStruct when ``struct``), in page order, from
+        synchronous waves of WAVE pages (one upload, one sweep + compaction
+        per size group and shape, one fetch per wave). ``post``: applied to
+        each page's hits; the list then holds post(hits) per page."""
+        out: list = []
+        for s in range(0, len(pages), WAVE):
+            for d in self._sweep_wave(pages[s : s + WAVE]):
+                hits = self._collect_page(d, verbose, False, None, struct)
+                out.append(post(hits) if post is not None else hits)
+        return out
+
+    def _sweep_wave(self, batch: list[np.ndarray]) -> list[tuple]:
+        """Device stage for one wave: per page shape, invert, crop to the
+        wave's ink bbox, upload once, sweep + compact every size group, and
+        fetch the positions. Returns per page (page, inverted page, plan,
+        start time, crop) with plan = [(group, "empty" | "sweep",
+        (crop-local positions i32, per-needle counts i32))]."""
+        t0 = time.perf_counter()
+        by_shape: dict[tuple[int, int], list[int]] = {}
+        for i, p in enumerate(batch):
+            by_shape.setdefault(p.shape, []).append(i)
+        per_page: list = [None] * len(batch)
+        for (H, W), idxs in by_shape.items():
+            inv = np.empty((len(idxs), H, W), np.uint8)
+            for k, i in enumerate(idxs):
+                p = batch[i]
+                if p.dtype != np.uint8:  # tolerate wider dtypes (0..255 values)
+                    p = p.astype(np.uint8)
+                np.subtract(255, p, out=inv[k])
+            crop = _ink_crop(inv, H, W, self.groups)
+            plans: list[list] = [[] for _ in idxs]
+            if crop is None or not any(g.nh < H and g.nw < W for g in self.groups):
+                crop = (0, 0, H, W)
+                for pp in plans:
+                    pp.extend((g, "empty", None) for g in self.groups)
+            else:
+                y0, x0, Hc, Wc = crop
+                inv_dev = torch.from_numpy(
+                    np.ascontiguousarray(inv[:, y0 : y0 + Hc, x0 : x0 + Wc])
+                ).to(self.device)
+                for grp, dg in zip(self.groups, self.dev_groups):
+                    if grp.nh >= H or grp.nw >= W or grp.nh >= Hc or grp.nw >= Wc:
+                        # past the page (reference semantics) or past the crop
+                        # (a window overlapping ink cannot fit: Hc >= 2·nh + ink)
+                        for pp in plans:
+                            pp.append((grp, "empty", None))
+                        continue
+                    mask, rcnt = ncc_sweep(
+                        inv_dev, dg.bank, dg.s_n, dg.s2_n, self.threshold, terms=dg.terms
+                    )
+                    pos, off, hcnt, _ = compact_hits(mask, rcnt)
+                    pos, off, hcnt = pos.cpu().numpy(), off.cpu().numpy(), hcnt.cpu().numpy()
+                    for k, pp in enumerate(plans):
+                        pp.append((grp, "sweep", (pos[off[k] : off[k + 1]], hcnt[k])))
+            for k, i in enumerate(idxs):
+                per_page[i] = (batch[i], inv[k], plans[k], t0, crop)
+        return per_page
+
+    def _collect_page(self, dispatched, verbose: bool, raw: bool, out, struct: bool = False):
+        """Exact f64 replay of one page's candidates, assembled in reference
+        order, with the reference's verbose and raw diagnostics."""
+        page, inv, plan, t_dispatch, crop = dispatched
+        H, W = page.shape
+        thr_f64 = np.float64(np.float32(self.threshold))
+        # device work and the fetch are one span per wave; attribute the page
+        # span to groups by their share of searches
+        page_elapsed = time.perf_counter() - t_dispatch
+        total_searches = max(sum(len(g.needle_ids) for g in self.groups), 1)
+        time_label = "estimated: page span attributed evenly"
+
+        per_needle: dict[int, tuple] = {}
+        needle_s: dict[int, float] = {}  # attributed per-search seconds
+        t00 = t_dispatch  # the reference's "overall" span starts at get_hits
+        planes = None  # (inv i32, inv² i32) for the replay
+        for grp, kind, data in plan:
+            if kind == "empty":
+                for i in grp.needle_ids:
+                    per_needle[i] = _EMPTY
+                    needle_s[i] = 0.0
+                continue
+            elapsed = page_elapsed * len(grp.needle_ids) / total_searches
+            for i in grp.needle_ids:
+                needle_s[i] = elapsed / max(len(grp.needle_ids), 1)
+            if planes is None:
+                # window sums over these fit i32: n*255^2 < 2^24 (kernel-gated)
+                i32 = inv.astype(np.int32)
+                planes = (i32, i32 * i32)
+            self._replay_group(grp, data, planes, thr_f64, per_needle, H, W, crop)
+            if verbose:
+                per_search_ms = elapsed * 1000.0 / max(len(grp.needle_ids), 1)
+                ns_per_px = elapsed * 1e9 / (W * H) / max(len(grp.needle_ids), 1)
+                print(
+                    f"[{self.device.type} group {grp.nw}x{grp.nh}] {len(grp.needle_ids)} "
+                    f"searches ~{per_search_ms:.2f}ms each ({time_label}; "
+                    f"{ns_per_px:.2f} ns/pixel)",
+                    file=sys.stderr,
+                )
+
+        # assemble in reference iteration order (offsets outer, letters inner)
+        parts: list[tuple[int, tuple]] = []
+        n_hits = 0
+        for i, nd in enumerate(self.needles):
+            arrs = per_needle.get(i, _EMPTY)
+            if verbose:
+                # per-search line in the reference's format (ncc.rs:657-666),
+                # with the page span attributed evenly across searches
+                s = needle_s.get(i, 0.0)
+                print(
+                    f"`{nd.letter}` [{_f32_debug(nd.offset[0])}, {_f32_debug(nd.offset[1])}] "
+                    f"needle size {nd.pixels.shape[1]}x{nd.pixels.shape[0]} hits {len(arrs[0])} "
+                    f"elapsed {int(s * 1000)}ms ({s * 1e9 / (W * H):.2f} ns/pixel)",
+                    file=sys.stderr,
+                )
+            if raw and out is not None:
+                self._print_raw(nd, self._needle_objects(i, arrs), out)
+            parts.append((i, arrs))
+            n_hits += len(arrs[0])
+        if verbose:
+            print(f"overall {(time.perf_counter() - t00) * 1000.0:.4f}ms", file=sys.stderr)
+            print(f"hits: {n_hits}", file=sys.stderr)
+            _print_count_table(
+                (self.needles[i].letter, len(arrs[0])) for i, arrs in parts
+            )
+        if struct:
+            return self._make_struct(parts)
+        all_hits: list[MatchWithLetter] = []
+        for i, arrs in parts:
+            all_hits.extend(self._needle_objects(i, arrs))
+        return all_hits
+
+    def _replay_group(self, grp, data, planes, thr_f64, per_needle, H, W, crop) -> None:
+        """One swept size group: remap the crop-local positions to the full
+        page and decide every candidate with the exact f64 similarity
+        (focr_tpu/models/ncc.py:1390-1404, 1429-1461, 1489-1497)."""
+        n = grp.nh * grp.nw
+        cy0, cx0, Hc, Wc = crop
+        pos_v, hcnt = data
+        W1 = word_stride(W, grp.nw) * 32  # full-page pos = y*W1 + x
+        if (Hc, Wc) != (H, W):
+            W1c = word_stride(Wc, grp.nw) * 32
+            ysv, xsv = np.divmod(pos_v, np.int32(W1c))
+            pos_v = (ysv + np.int32(cy0)) * np.int32(W1) + (xsv + np.int32(cx0))
+        nv = len(pos_v)
+        ends_all = np.cumsum(hcnt.astype(np.int64))
+        starts_all = ends_all - hcnt
+        # candidate positions arrive in (needle, scan) order already
+        wins = np.lib.stride_tricks.sliding_window_view(planes[0], (grp.nh, grp.nw))
+        wins_sq = np.lib.stride_tricks.sliding_window_view(planes[1], (grp.nh, grp.nw))
+        lin = pos_v.astype(np.int64)
+        nid_c = np.searchsorted(ends_all, np.arange(nv), side="right")
+        ys = lin // W1
+        xs = lin % W1
+        sim = np.empty(nv, np.float64)
+        bank32 = grp.bank.astype(np.int32)
+        # chunked: the [chunk, nh, nw] i32 gathers are the peak host allocation
+        CH = 65536
+        for c0 in range(0, nv, CH):
+            sl = slice(c0, min(c0 + CH, nv))
+            w_cand = wins[ys[sl], xs[sl]]
+            acc = (w_cand * bank32[nid_c[sl]]).sum(axis=(1, 2), dtype=np.int32)
+            sp = w_cand.sum(axis=(1, 2), dtype=np.int32)
+            s2p = wins_sq[ys[sl], xs[sl]].sum(axis=(1, 2), dtype=np.int32)
+            sim[sl] = exact_similarities(
+                acc, sp, s2p, grp.s_n[nid_c[sl]], grp.s2_n[nid_c[sl]], n
+            )
+        for ti, i in enumerate(grp.needle_ids):
+            s = slice(int(starts_all[ti]), int(ends_all[ti]))
+            keep = (sim[s] != np.inf) & (sim[s] > thr_f64)
+            if keep.sum() >= MAX_MATCHES:
+                print(f"WARN got >= {MAX_MATCHES} matches", file=sys.stderr)
+            per_needle[i] = (
+                xs[s][keep][:MAX_MATCHES].astype(np.int64),
+                ys[s][keep][:MAX_MATCHES].astype(np.int64),
+                sim[s][keep][:MAX_MATCHES].astype(np.float32),
+            )
+
+    def _needle_objects(self, i: int, arrs: tuple) -> list[MatchWithLetter]:
+        nd = self.needles[i]
+        nh, nw = nd.pixels.shape
+        return [
+            MatchWithLetter(nd.letter, int(x), int(y), nw, nh, float(s))
+            for x, y, s in zip(*arrs)
+        ]
+
+    def _make_struct(self, parts: list[tuple[int, tuple]]) -> HitStruct:
+        sizes = [len(arrs[0]) for _, arrs in parts]
+        total = sum(sizes)
+        nid = np.repeat(
+            np.array([i for i, _ in parts], dtype=np.int32),
+            np.array(sizes, dtype=np.int64),
+        )
+        if total:
+            xs = np.concatenate([arrs[0] for _, arrs in parts]).astype(np.int64)
+            ys = np.concatenate([arrs[1] for _, arrs in parts]).astype(np.int64)
+            sims = np.concatenate([arrs[2] for _, arrs in parts]).astype(np.float32)
+        else:
+            xs = np.zeros(0, np.int64)
+            ys = np.zeros(0, np.int64)
+            sims = np.zeros(0, np.float32)
+        return HitStruct(needle_id=nid, x=xs, y=ys, sim=sims, matcher=self)
+
+    def get_hits_oracle(
+        self, page: np.ndarray, verbose: bool = False, raw: bool = False, out=None
+    ) -> list[MatchWithLetter]:
+        """Host-only differential-oracle path (the reference's --rust flag,
+        ncc.rs:532-533, 651-655): NumPy Searcher per needle, same results."""
+        from focr_tpu_torch.oracle.ncc_oracle import Searcher
+
+        t00 = time.perf_counter()
+        searcher = Searcher(page)
+        all_hits: list[MatchWithLetter] = []
+        for nd in self.needles:
+            nh, nw = nd.pixels.shape
+            H, W = page.shape
+            if nh >= H or nw >= W:
+                hits: list[MatchWithLetter] = []
+            else:
+                t0 = time.perf_counter()
+                ms = searcher.search(nd.pixels, self.threshold)
+                elapsed = time.perf_counter() - t0
+                hits = [
+                    MatchWithLetter(nd.letter, m.x, m.y, m.w, m.h, m.similarity) for m in ms
+                ]
+                if verbose:
+                    print(
+                        f"`{nd.letter}` [{_f32_debug(nd.offset[0])}, {_f32_debug(nd.offset[1])}] "
+                        f"needle size {nw}x{nh} hits {len(hits)} elapsed "
+                        f"{int(elapsed * 1000)}ms ({elapsed * 1e9 / (W * H):.2f} ns/pixel)",
+                        file=sys.stderr,
+                    )
+            if raw and out is not None:
+                self._print_raw(nd, hits, out)
+            all_hits.extend(hits)
+        if verbose:
+            print(f"overall {(time.perf_counter() - t00) * 1000.0:.4f}ms", file=sys.stderr)
+            print(f"hits: {len(all_hits)}", file=sys.stderr)
+            _print_count_table((h.letter, 1) for h in all_hits)
+        return all_hits
+
+    def _print_raw(self, nd: Needle, hits: list[MatchWithLetter], out) -> None:
+        """The 11-field --raw CSV per hit (ncc.rs:683-698)."""
+        m = self.face.metrics
+        to_px = np.float32(1.0) / np.float32(m.units_per_em) * np.float32(self.ropts.size)
+        gid = self.face.glyph_for_char(nd.letter)
+        tb = self.face.typographic_bounds(gid).scale(float(to_px))
+        bearing_x = np.float32(tb.x0)
+        for h in hits:
+            cx, cy = h.center
+            print(
+                f"{ord(nd.letter)},{_f32(cx)},{_f32(cy)},{h.x},{h.y},{h.w},{h.h},"
+                f"{_f32(bearing_x)},{_f32(nd.corrected_offset[1])},"
+                f"{_f32(nd.offset[0])},{_f32(nd.offset[1])}",
+                file=out,
+            )
+
+
+def _print_count_table(letter_counts) -> None:
+    """Per-char totals, sorted by (count, char), zeros skipped
+    (ncc.rs:709-718)."""
+    counts: dict[str, int] = {}
+    for letter, k in letter_counts:
+        if k:
+            counts[letter] = counts.get(letter, 0) + k
+    for letter, count in sorted(counts.items(), key=lambda kv: (kv[1], kv[0])):
+        print(f"`{letter}` {count}", file=sys.stderr)
+
+
+def _f32(v) -> str:
+    """Rust `{}` Display for f32: shortest round-trip, no trailing .0."""
+    return np.format_float_positional(np.float32(v), unique=True, trim="-")
+
+
+def _f32_debug(v) -> str:
+    """Rust `{:?}` Debug for f32: shortest round-trip, keeps one decimal."""
+    return np.format_float_positional(np.float32(v), unique=True, trim="0")

@@ -1,0 +1,103 @@
+"""Build and bind the CUDA kernels of csrc/ (nvcc -> .so with a plain C
+interface -> ctypes).
+
+The library is built at first use into focr_tpu_torch/_build/, named by a hash
+of the sources, the flags and the compiler, so a fresh checkout builds once
+and a source edit rebuilds. Flags: sm_90a (Hopper), and --fmad=false with no
+fast-math, because the sweep's f32 threshold test relies on every op rounding
+on its own (see csrc/ncc_sweep.cu).
+
+Run ``python -m focr_tpu_torch.native.build`` to build ahead of time and print
+the compiler's register and shared-memory report.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("ncc_sweep.cu", "ncc_compact.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc() -> str:
+    """$CUDA_HOME/bin/nvcc, else nvcc on PATH, else /usr/local/cuda."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the CUDA toolkit")
+
+
+def library_path(compiler: str) -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    h.update("\0".join(NVCC_FLAGS + (compiler,)).encode())
+    return os.path.join(BUILD_DIR, f"libfocr_ncc-{h.hexdigest()[:16]}.so")
+
+
+def build(report: bool = False) -> str:
+    """Compile csrc/ into the hashed .so unless it exists; return its path.
+    ``report`` adds -Xptxas -v and prints the compiler's output."""
+    compiler = nvcc()
+    out = library_path(compiler)
+    if os.path.exists(out) and not report:
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [compiler, *NVCC_FLAGS, *(["-Xptxas", "-v"] if report else []),
+           "-o", tmp, *(os.path.join(_CSRC, s) for s in SOURCES)]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+            )
+        if report:
+            print(res.stdout + res.stderr, file=sys.stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built if needed, with every entry point typed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(build())
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.focr_ncc_sweep.argtypes = [p, i, i, i, p, i, i, i, p, p, f, f, p, p, p]
+    lib.focr_ncc_sweep.restype = i
+    lib.focr_ncc_compact.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
+    lib.focr_ncc_compact.restype = i
+    _lib = lib
+    return lib
+
+
+if __name__ == "__main__":
+    print(build(report=True))

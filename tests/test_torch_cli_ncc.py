@@ -1,0 +1,126 @@
+"""focr_tpu_torch's ncc CLI (--device cpu) against focr_tpu's, on the same
+pages: stdout byte for byte for the text, --csv and --raw outputs."""
+
+import numpy as np
+import pytest
+import torch
+
+from focr_tpu.cli.ncc import main as jax_main
+from focr_tpu.fonts.ft import Face
+from focr_tpu.io.synth import synthesize_page
+from focr_tpu.models.ncc import NccMatcher
+from focr_tpu.models.types import DecodeOptions, RenderOptions
+from focr_tpu_torch.cli.ncc import main as torch_main
+from focr_tpu_torch.fonts.bank import bank_settings, build_needles, save_needle_bank
+from focr_tpu_torch.fonts.ft import Face as TFace
+from focr_tpu_torch.io.images import save_gray
+from focr_tpu_torch.models.types import BoxSize, RenderOptions as TRenderOptions
+
+torch.set_num_threads(2)
+
+ALPHA = "ABCXYZ01="
+
+
+@pytest.fixture(scope="module")
+def pages(tmp_path_factory, mono_font_path):
+    """A stamped page (tests/test_cli_ncc.py's) and a small rendered text
+    page, as PGM files."""
+    face = Face(mono_font_path)
+    m = NccMatcher(face, "ABCXYZ", RenderOptions(size=13.0), threshold=0.8)
+    by_letter = {nd.letter: nd for nd in m.needles}
+    stamped = np.full((90, 120), 255, dtype=np.uint8)
+    for text, y in zip(["XABC", "ZYCA"], (10, 40)):
+        for ci, ch in enumerate(text):
+            nd = by_letter[ch]
+            nh, nw = nd.pixels.shape
+            region = stamped[y : y + nh, 8 + ci * 9 : 8 + ci * 9 + nw]
+            np.minimum(region, 255 - nd.pixels, out=region)
+    dopts = DecodeOptions(x_start=4, y_start=5, line_height=12, line_advance=15, width=150)
+    text = synthesize_page(
+        face, ["AB=01XYZ", "ZZ10=CBA", "0X1Y=A"], dopts, RenderOptions(size=13.0),
+        ALPHA, (70, 120),
+    )
+    d = tmp_path_factory.mktemp("torch_ncc")
+    paths = []
+    for name, img in (("stamped", stamped), ("text", text)):
+        p = d / f"{name}.pgm"
+        save_gray(str(p), img)
+        paths.append(str(p))
+    return paths
+
+
+def _run(main, argv, capsys):
+    rc = main(argv)
+    cap = capsys.readouterr()
+    return rc, cap.out, cap.err
+
+
+@pytest.mark.parametrize(
+    "extra", [[], ["--csv"], ["--x-bits", "1", "--csv"], ["--threshold", "0.6"]],
+    ids=["text", "csv", "csv-xbits", "threshold"],
+)
+def test_cli_stdout_matches_focr_tpu(pages, mono_font_path, capsys, extra):
+    argv = ["-i", *pages, "-f", mono_font_path, "-t", "13", "-a", ALPHA, *extra]
+    rc_j, out_j, _ = _run(jax_main, argv, capsys)
+    rc_t, out_t, _ = _run(torch_main, [*argv, "--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0
+    assert out_t == out_j
+    assert out_t.strip()
+
+
+@pytest.mark.parametrize("page", [0, 1])
+def test_cli_raw_matches_focr_tpu(pages, mono_font_path, capsys, page):
+    argv = ["-i", pages[page], "-f", mono_font_path, "-t", "13", "-a", ALPHA, "--raw"]
+    _, out_j, _ = _run(jax_main, argv, capsys)
+    rc, out_t, _ = _run(torch_main, [*argv, "--device", "cpu"], capsys)
+    assert rc == 0 and out_t == out_j
+    assert all(len(r.split(",")) == 11 for r in out_t.splitlines())
+
+
+def test_cli_rust_and_verbose_keep_stdout(pages, mono_font_path, capsys):
+    """--rust (the oracle) prints the same lines; -v adds diagnostics on
+    stderr only."""
+    argv = ["-i", *pages, "-f", mono_font_path, "-t", "13", "-a", ALPHA, "--device", "cpu"]
+    _, plain, err = _run(torch_main, argv, capsys)
+    assert err == ""
+    _, rust, _ = _run(torch_main, [*argv, "--rust"], capsys)
+    _, verbose, verr = _run(torch_main, [*argv, "-v"], capsys)
+    assert rust == verbose == plain
+    assert "needle size" in verr and "hits:" in verr
+
+
+def test_cli_without_cuda_fails_clearly(pages, mono_font_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = _run(torch_main, ["-i", pages[0], "-f", mono_font_path, "-t", "13"], capsys)
+    assert rc != 0 and out == ""
+    assert "CUDA" in err and "--device cpu" in err
+
+
+def test_cli_needle_bank(pages, mono_font_path, tmp_path, capsys):
+    """A saved needle bank stands in for FreeType rendering: same stdout; a
+    bank rendered under other settings is refused."""
+    ropts = TRenderOptions(size=13.0)
+    needles = build_needles(TFace(mono_font_path), ALPHA, ropts, BoxSize.ALPHABET, 0, 0)
+    bank = str(tmp_path / "bank.npz")
+    save_needle_bank(
+        bank, needles,
+        bank_settings(mono_font_path, ALPHA, ropts, BoxSize.ALPHABET, 0, 0, (0, 0)),
+    )
+    argv = ["-i", *pages, "-f", mono_font_path, "-t", "13", "-a", ALPHA, "--device", "cpu"]
+    _, want, _ = _run(torch_main, argv, capsys)
+    rc, got, _ = _run(torch_main, [*argv, "--needle-bank", bank], capsys)
+    assert rc == 0 and got == want
+    rc, out, err = _run(torch_main, [*argv, "--needle-bank", bank, "--x-bits", "1"], capsys)
+    assert rc != 0 and out == "" and "rendered with" in err
+
+
+def test_cli_unreadable_page_isolated(pages, mono_font_path, tmp_path, capsys):
+    bad = tmp_path / "bad.pgm"
+    bad.write_bytes(b"P5\n10 10\n255\n\x00")  # truncated
+    argv = ["-i", str(bad), pages[0], "-f", mono_font_path, "-t", "13", "-a", ALPHA,
+            "--device", "cpu"]
+    rc, out, err = _run(torch_main, argv, capsys)
+    _, want, _ = _run(torch_main, argv[:1] + argv[2:], capsys)
+    assert rc == 0 and out == want and "ERROR" in err
+    with pytest.raises(ValueError):
+        torch_main([*argv, "--strict"])
