@@ -3,12 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives the ncc slice at its canonical workload (bench.py's dense corpus:
-DejaVu Sans Mono 13, 74 letters, --x-bits 2, 296 needles in a 13x8 and a 13x9
-group, 792x662 letter pages of 48 lines x 77 characters), from the golden
-fixture tests/fixtures/torch_ncc_golden.npz (made by focr_tpu on a CPU, with
-a saved needle bank, so no FreeType is needed). Phases, each of which raises
-on failure:
+Drives both slices of the port at their canonical workloads, from golden
+fixtures made by focr_tpu on a CPU with saved glyph banks, so no FreeType is
+needed:
+
+  ncc  — bench.py's dense corpus: DejaVu Sans Mono 13, 74 letters, --x-bits 2,
+         296 needles in a 13x8 and a 13x9 group, 792x662 letter pages of 48
+         lines x 77 characters (tests/fixtures/torch_ncc_golden.npz)
+  focr — bench.py's focr corpus: DejaVu Sans Mono 13, the 67-glyph default
+         alphabet, grid -x 45 -y 39 -w 608 --line-height 12 --line-advance 15
+         (78 cells, 50 full rows and one 3-pixel bottom row), 792x662 pages of
+         48 lines x 77 characters (tests/fixtures/torch_focr_golden.npz)
+
+Phases, each of which raises on failure:
 
   1. device  — the card's name and power limit; CUDA must be available
   2. build   — nvcc builds csrc/ into focr_tpu_torch/_build/
@@ -22,6 +29,20 @@ on failure:
                counts reset just before and read just after (the counted main
                path), once as `python -m focr_tpu_torch.cli.ncc` (exit 0, same
                stdout); every page's lines are checked against its text
+  6. focr-kernels — K4 (ssd_argmin) against its plain PyTorch version on the
+               card, exact (tolerance 0 on ids and white), on a 16-page wave of
+               the corpus cropped as GridDecoder crops it (both row groups),
+               seeded noise pages (near-ties), an alphabet with duplicated
+               characters (exact ties) and a narrow strip whose windows hang
+               past its width; then both timed with CUDA events
+  7. focr-golden — GridDecoder on the card decodes the 16 pages, and one
+               page streamed in row chunks as the CLI does for a single
+               image, to focr_tpu's lines, through K4
+  8. focr-cli — the focr CLI on the 16 pages with --grid-bank: once
+               in-process with K4's launch count reset just before and read
+               just after, once as `python -m focr_tpu_torch.cli.focr`; both
+               exit 0 with the same stdout, equal to focr_tpu's lines, and
+               every page's text is found in its lines
 
 Then one JSON line of the kernels, the card line, and last
 {"ok": true, "device": {...}}.
@@ -40,6 +61,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_ncc_golden.npz")
+FOCR_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_focr_golden.npz")
+FOCR_GRID = ["-x", "45", "-y", "39", "-w", "608", "--line-height", "12", "--line-advance", "15"]
 # the font the fixture's bank was rendered from; only its name is checked
 FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSansMono.ttf"
 THRESHOLD = 0.8
@@ -75,6 +98,142 @@ def max_abs_err(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def focr_phases(dev, card: str) -> tuple[dict, float, float]:
+    """Phases 6-8: the focr slice. Returns (K4's kernels entry, in-process
+    CLI pages/s, subprocess CLI pages/s)."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.cli.focr import main as focr_main
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+    from focr_tpu_torch.io.images import save_gray
+    from focr_tpu_torch.models import focr as focr_model
+    from focr_tpu_torch.models.types import DecodeOptions, RenderOptions
+    from focr_tpu_torch.ops import ssd_kernels as S
+
+    banks, settings = load_grid_bank(FOCR_FIXTURE)
+    with np.load(FOCR_FIXTURE, allow_pickle=False) as z:
+        pages = z["pages"]
+        truths = json.loads(str(z["truths"]))
+        golden = json.loads(str(z["lines"]))
+    alphabet = settings["alphabet"]
+    dopts = DecodeOptions(x_start=45, y_start=39, line_height=12, line_advance=15, width=608)
+    dec = focr_model.GridDecoder(None, alphabet, dopts, RenderOptions(size=13.0),
+                                 pages.shape[1:], dev, banks=banks)
+    B = len(pages)
+
+    # 6. focr-kernels: K4 against its plain version on four kinds of input
+    def check(label, strips, templates, tsq, wx0, forbidden=()):
+        args = [torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+                for a in (strips, templates, tsq, wx0)]
+        ids, white = S.ssd_argmin(*args)
+        ids_r, white_r = S.ssd_argmin_reference(*args)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(ids, ids_r), max_abs_err(white.to(torch.int32),
+                                                      white_r.to(torch.int32)))
+        bad = [g for g in forbidden if bool((ids == g).any())]
+        log(f"[focr-kernels] {label}: strips {tuple(strips.shape)}, {templates.shape[1]} glyphs, "
+            f"K4 vs plain max|err| {e}, {int(white.sum())} white strips")
+        if e or bad:
+            raise AssertionError(f"K4 mismatch on {label}: max|err| {e}, duplicate ids {bad}")
+        return e, args
+
+    err, ms, plain_ms = 0, 0.0, 0.0
+    for (grp, _), bank in zip(dec.groups, dec.banks):
+        strips = focr_model.crop_strips(pages, grp.ys, grp.crop_h, dec.x0, dec.crop_w)
+        e, args = check(f"corpus wave, row group h={grp.crop_h} ({len(grp.ys)} rows)", strips,
+                        bank.templates, bank.tsq.astype(np.int64), bank.wx0)
+        err = max(err, e)
+        k_ms = cuda_ms(lambda: S.ssd_argmin(*args), 20) / B
+        p_ms = cuda_ms(lambda: S.ssd_argmin_reference(*args), 5) / B
+        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        log(f"[focr-kernels] row group h={grp.crop_h} ms/page: K4 {k_ms:.5f} (plain {p_ms:.5f})")
+    bank = banks[12]
+    G = bank.n_glyphs
+    ys = dec.groups[0][0].ys
+    rng = np.random.default_rng(11)
+    noise = rng.integers(0, 256, (6, *pages.shape[1:]), dtype=np.uint8)
+    noise[4:] = np.clip(rng.integers(248, 262, (2, *pages.shape[1:])), 0, 255)
+    noise_strips = focr_model.crop_strips(noise, ys, 12, dec.x0, dec.crop_w)
+    tsq = bank.tsq.astype(np.int64)
+    err = max(err, check("seeded noise pages", noise_strips, bank.templates, tsq, bank.wx0)[0])
+    corpus_strips = focr_model.crop_strips(pages[:4], ys, 12, dec.x0, dec.crop_w)
+    for label, order, forbidden in (
+        ("duplicated characters at the end", np.r_[np.arange(G), [3, 17, 40, G - 1]],
+         range(G, G + 4)),
+        ("a duplicated character in front", np.r_[[10], np.arange(G)], [11]),
+    ):
+        for strips in (corpus_strips, noise_strips):
+            err = max(err, check(label, strips, bank.templates[:, order], tsq[:, order],
+                                 bank.wx0, forbidden)[0])
+    narrow = rng.integers(0, 256, (4, 6, 12, 20), dtype=np.uint8)
+    err = max(err, check("narrow strip, windows hang past crop_w", narrow,
+                         bank.templates[:4], tsq[:4], np.array([0, 7, 14, 19], np.int32))[0])
+
+    # 7. focr-golden: GridDecoder on the card reproduces focr_tpu's lines
+    S.reset_launches()
+    got = [[[ln.text, ln.y] for ln in p] for p in dec.decode_batch(pages)]
+    n_golden = S.LAUNCHES["ssd_argmin"]
+    if got != golden:
+        raise AssertionError("focr golden pages: the card's lines differ from focr_tpu's")
+    if not n_golden:
+        raise AssertionError("focr golden pages did not launch K4")
+    # the single-image path (the CLI with one page) streams row chunks
+    S.reset_launches()
+    streamed = [[ln.text, ln.y] for ln in focr_model.decode_single_stream(dec, pages[0])]
+    n_stream = S.LAUNCHES["ssd_argmin"]
+    if streamed != golden[0] or not n_stream:
+        raise AssertionError(f"focr streamed page: lines differ or K4 not launched ({n_stream})")
+    log(f"[focr-golden] {B} pages: {sum(map(len, got))} lines identical to focr_tpu's; "
+        f"K4 launches {n_golden}; one page streamed in row chunks: identical, "
+        f"K4 launches {n_stream}")
+
+    # 8. focr-cli: the focr command line on the 16 pages, with the saved bank
+    want_out = "".join(f"{text}\n" for p in golden for text, _ in p)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for k, p in enumerate(pages):
+            paths.append(os.path.join(tmp, f"page{k:02d}.pgm"))
+            save_gray(paths[-1], p)
+        argv = ["-i", *paths, "-f", FONT, "-t", "13", *FOCR_GRID, "--grid-bank", FOCR_FIXTURE]
+        buf = io.StringIO()
+        S.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = focr_main(argv)
+        wall = time.perf_counter() - t0
+        launches = S.LAUNCHES["ssd_argmin"]
+        if rc != 0 or not launches:
+            raise AssertionError(f"in-process focr CLI: rc {rc}, K4 launches {launches}")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "focr_tpu_torch.cli.focr", *argv],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        sub_wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"focr CLI exited {res.returncode}: {res.stderr[-2000:]}")
+    if res.stdout != buf.getvalue():
+        raise AssertionError("focr CLI subprocess stdout differs from the in-process run")
+    if res.stdout != want_out:
+        raise AssertionError("focr CLI: the lines differ from focr_tpu's")
+    out_lines = res.stdout.splitlines()
+    off = 0
+    for p, page_lines in enumerate(golden):  # bench.py:90-93's acceptance rule
+        have = [ln.rstrip() for ln in out_lines[off : off + len(page_lines)]]
+        off += len(page_lines)
+        if have[: len(truths[p])] != [t.rstrip() for t in truths[p]]:
+            raise AssertionError(f"focr CLI page {p}: the page's text was not decoded")
+    log(f"[focr-cli] exit 0; {B} pages, {len(out_lines)} lines (identical to focr_tpu's, every "
+        f"page's text decoded); in-process {B / wall:.2f} pages/s ({wall:.3f} s), subprocess "
+        f"{B / sub_wall:.2f} pages/s ({sub_wall:.2f} s incl. start-up); K4 launches {launches}; "
+        f"card {card}")
+    entry = {"name": "ssd_argmin", "route": "cuda", "source": "focr_tpu_torch/csrc/focr_ssd.cu",
+             "replaces": "focr_tpu/models/focr.py:60", "launches": launches,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return entry, B / wall, B / sub_wall
 
 
 def main() -> int:
@@ -251,8 +410,14 @@ def main() -> int:
          "max_abs_err": err["compact_hits"], "ms": ms["compact_hits"],
          "plain_ms": plain_ms["compact_hits"]},
     ]
+
+    # 6-8. the focr slice
+    k4, focr_pps, focr_sub_pps = focr_phases(dev, card)
+    kernels.append(k4)
     print(json.dumps({"kernels": kernels, "cli_pages_per_s": len(pages) / wall,
-                      "cli_subprocess_pages_per_s": len(pages) / sub_wall}), flush=True)
+                      "cli_subprocess_pages_per_s": len(pages) / sub_wall,
+                      "focr_cli_pages_per_s": focr_pps,
+                      "focr_cli_subprocess_pages_per_s": focr_sub_pps}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

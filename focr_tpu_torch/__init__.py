@@ -1,17 +1,27 @@
 """focr_tpu_torch — the PyTorch + CUDA port of focr_tpu, for NVIDIA Hopper.
 
 focr_tpu (JAX, TPU) is the reference; this package keeps its module layout and
-names, imports torch and never jax, and shares no code with it.
+names, imports torch and never jax, and shares no code with it. It runs the
+two binaries' main paths: `focr` (the monospace grid decoder; proportional
+alphabets go to the NumPy oracle) and `ncc` (the template matcher).
 
-  fonts/     host font layer: ctypes FreeType + the ncc needle bank
-  ops/       device ops: window stats, the NCC sweep and compaction kernels
+  fonts/     host font layer: ctypes FreeType, the focr grid bank and the ncc
+             needle bank (both can be saved and loaded as .npz)
+  ops/       device ops: the SSD-argmin kernel (focr), window stats, the NCC
+             sweep and compaction kernels (ncc), each beside its plain version
   csrc/      the hand-written CUDA C++ kernels (sm_90a)
   native/    nvcc build + ctypes binding of csrc/
-  models/    the ncc matcher and hit post-processing
-  io/        page I/O (PGM/PPM in NumPy), synthetic pages
-  cli/       the ncc command line
-  oracle/    the NumPy ncc oracle (differential check, --rust)
+  models/    the focr grid decoder, the ncc matcher and hit post-processing
+  io/        page I/O (PGM/PPM in NumPy), page buckets, synthetic pages
+  cli/       the focr and ncc command lines
+  oracle/    the NumPy focr and ncc oracles
   utils/     device selection
+
+For example, the canonical focr grid on a CUDA card (``--device cpu`` runs
+the plain versions):
+
+  python -m focr_tpu_torch.cli.focr -i page-*.pgm -f DejaVuSansMono.ttf
+      -t 13 -x 45 -y 39 -w 608 --line-height 12 --line-advance 15
 
 Importing the package pins every float32 matmul to full IEEE float32 (no TF32,
 no reduced-precision reductions): the exactness contract holds the device's

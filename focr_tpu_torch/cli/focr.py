@@ -1,0 +1,111 @@
+"""focr CLI on PyTorch + CUDA — the flags and output of focr_tpu/cli/focr.py
+(reference main.rs:342-508), plus --device and --grid-bank.
+
+stdout carries ONLY decoded text lines; every diagnostic goes to stderr (the
+contract that makes `focr ... | sed | base64 -d` work). An unreadable page is
+reported as `ERROR <path>: ...` on stderr and skipped, unless --strict.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from focr_tpu_torch.fonts.ft import Face, HintingOptions
+from focr_tpu_torch.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="focr", description="grid SSD font OCR (PyTorch + CUDA)")
+    p.add_argument("-i", "--img", action="extend", nargs="+", default=[], required=True)
+    p.add_argument("-f", "--font", required=True)
+    p.add_argument("-a", "--alphabet", default=FOCR_DEFAULT_ALPHABET)
+    p.add_argument("--hinting", action="store_true")
+    p.add_argument("-t", "--text-size", type=float, required=True)
+    p.add_argument("-k", "--kerning", type=float, default=1.0)
+    p.add_argument("-x", type=int, default=0)
+    p.add_argument("-y", type=int, default=0)
+    p.add_argument("-w", "--width", type=int, required=True)
+    p.add_argument("--line-height", type=int, required=True)
+    p.add_argument("--line-advance", type=int, required=True)
+    p.add_argument("--batch-size", type=int, default=16, help="pages per device batch")
+    p.add_argument("--strict", action="store_true",
+                   help="fail on the first unreadable page (reference panic semantics); "
+                        "default isolates per-page errors to stderr and continues")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (the CUDA kernel; default) or cpu (its plain PyTorch version)")
+    p.add_argument("--grid-bank", default=None, metavar="NPZ",
+                   help="load the glyph templates from a saved grid bank "
+                        "(fonts/bank.py::save_grid_bank) instead of rendering them "
+                        "with FreeType; its settings must match the flags")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    from focr_tpu_torch.fonts.bank import grid_bank_settings, load_grid_bank
+    from focr_tpu_torch.io.images import load_gray_many, load_gray_many_isolated
+    from focr_tpu_torch.models.focr import _cached_decoder, decode_pages, decode_single_stream
+    from focr_tpu_torch.utils.device import resolve_device
+
+    hinting = HintingOptions(full=True, size=args.text_size) if args.hinting else HintingOptions()
+    ropts = RenderOptions(size=args.text_size, hinting=hinting, kern_x=args.kerning)
+    dopts = DecodeOptions(
+        x_start=args.x,
+        y_start=args.y,
+        width=args.width,
+        line_height=args.line_height,
+        line_advance=args.line_advance,
+    )
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"focr: error: {e}", file=sys.stderr)
+        return 2
+
+    banks = None
+    if args.grid_bank is not None:
+        banks, saved = load_grid_bank(args.grid_bank)
+        want = grid_bank_settings(args.font, args.alphabet, ropts, args.width)
+        if saved != want:
+            print(f"focr: error: {args.grid_bank} was rendered with {saved}, "
+                  f"the flags ask for {want}", file=sys.stderr)
+            return 2
+        missing = sorted(set(range(1, args.line_height + 1)) - set(banks))
+        if missing:
+            print(f"focr: error: {args.grid_bank} has no bank for crop heights {missing}",
+                  file=sys.stderr)
+            return 2
+    # the font itself is opened only when no saved bank is given
+    face = Face(args.font) if banks is None else None
+
+    if args.strict:
+        pages = load_gray_many(args.img)
+    else:
+        pages, errors = load_gray_many_isolated(args.img)
+        for i, err in errors:
+            print(f"ERROR {args.img[i]}: {err}", file=sys.stderr)
+
+    good_idx = [i for i, p in enumerate(pages) if p is not None]
+    good_pages = [pages[i] for i in good_idx]
+    if len(args.img) == 1 and good_pages:
+        # single-image fast path: print each line as soon as its row chunk
+        # is decoded (main.rs:427-440)
+        page = good_pages[0]
+        dec = _cached_decoder(face, args.alphabet, dopts, ropts, page.shape, device, banks)
+        for line in decode_single_stream(dec, page):
+            print(line.text, flush=True)
+        return 0
+
+    results = decode_pages(
+        good_pages, face, args.alphabet, dopts, ropts, device,
+        batch_size=args.batch_size, banks=banks,
+    )
+    for lines in results:
+        for line in lines:
+            print(line.text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

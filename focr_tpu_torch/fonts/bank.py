@@ -1,12 +1,15 @@
-"""The ncc needle bank: every (offset, letter) glyph rendered once at startup.
+"""Template banks: every glyph rendered once at startup, matched on the device.
 
-The needle half of focr_tpu/fonts/bank.py (:307-454), minus its disk cache
-(the canonical 296-needle bank renders in well under a second). The focr grid
-and proportional banks come with their slices.
+The grid half (GridBank, build_grid_bank — focr_tpu/fonts/bank.py:28-173) and
+the needle half (:307-454) of focr_tpu/fonts/bank.py, minus its disk cache
+(the canonical banks render in about a second). The proportional bank comes
+with its slice.
 
-A bank can also be saved to and loaded from an .npz file
-(save_needle_bank / load_needle_bank), so a machine without FreeType can run
-the matcher on needles rendered elsewhere.
+Either bank can also be saved to and loaded from an .npz file
+(save_grid_bank / load_grid_bank, save_needle_bank / load_needle_bank), so a
+machine without FreeType can decode with glyphs rendered elsewhere. A saved
+grid bank holds one GridBank per crop height, so every page height on its
+grid is served.
 """
 
 from __future__ import annotations
@@ -19,6 +22,187 @@ import numpy as np
 
 from focr_tpu_torch.fonts.ft import Canvas, Face, RectF
 from focr_tpu_torch.models.types import BoxSize, RenderOptions
+from focr_tpu_torch.oracle.focr_oracle import advance_px, alphabet_origin
+
+
+@dataclass(frozen=True)
+class GridBank:
+    """Per-cell glyph templates for one (grid, crop-height) configuration.
+
+    templates[k, g] is glyph g rasterized at cursor position k into the
+    (crop_w × crop_h) line canvas — exactly what score_glyph compares against
+    (main.rs:87-110) — cropped to the cell window [wx0[k], wx0[k]+win_w).
+    """
+
+    alphabet: str
+    templates: np.ndarray  # [C, G, crop_h, win_w] u8
+    tsq: np.ndarray  # [C, G] i32 (i64 when it would not fit) — Σ T² over the full canvas
+    wx0: np.ndarray  # [C] i32 — window start column in the line crop
+    positions: np.ndarray  # [C] f32 — cursor x positions
+    crop_w: int
+    crop_h: int
+    monospace: bool
+
+    @property
+    def n_cells(self) -> int:
+        return self.templates.shape[0]
+
+    @property
+    def n_glyphs(self) -> int:
+        return self.templates.shape[1]
+
+    @property
+    def win_w(self) -> int:
+        return self.templates.shape[3]
+
+
+def cursor_positions(face: Face, alphabet: str, ropts: RenderOptions, width: int) -> np.ndarray:
+    """Static cursor grid for monospace fonts: replicates the f32 accumulation
+    ``pos += advance/upem*size*kern_x`` (main.rs:176-178). Requires every
+    alphabet glyph to share one advance (checked by caller)."""
+    adv = advance_px(face, face.glyph_for_char(alphabet[0]), ropts)
+    out = []
+    pos = np.float32(0.0)
+    while pos < np.float32(width):
+        out.append(pos)
+        pos = pos + adv
+    return np.array(out, dtype=np.float32)
+
+
+def is_monospace(face: Face, alphabet: str, ropts: RenderOptions) -> bool:
+    advs = {float(advance_px(face, face.glyph_for_char(c), ropts)) for c in alphabet}
+    return len(advs) <= 1
+
+
+def build_grid_bank(
+    face: Face,
+    alphabet: str,
+    ropts: RenderOptions,
+    crop_w: int,
+    crop_h: int,
+) -> GridBank:
+    """Build the focr cell/glyph template bank for a (crop_w × crop_h) line.
+
+    Replaces decode_line's inner rasterization (main.rs:125-172). Each
+    template is rasterized into a full line-sized canvas (so edge clipping
+    matches the reference exactly) and cropped to a fixed-width window derived
+    from actual ink extents.
+    """
+    if not is_monospace(face, alphabet, ropts):
+        raise ValueError("grid bank requires a monospace alphabet (use the sequential fallback)")
+    gids = [face.glyph_for_char(c) for c in alphabet]
+    ox, oy = alphabet_origin(face, alphabet, ropts)
+    positions = cursor_positions(face, alphabet, ropts, crop_w)
+    C, G = len(positions), len(gids)
+
+    canvases = np.zeros((C, G, crop_h, crop_w), dtype=np.uint8)
+    canvas = Canvas(crop_w, crop_h)
+    for k, pos in enumerate(positions):
+        for gi, gid in enumerate(gids):
+            canvas.fill(0)
+            face.rasterize_glyph(
+                canvas, gid, ropts.size, (float(ox + pos), float(oy)), ropts.hinting
+            )
+            canvases[k, gi] = canvas.pixels
+
+    # Window per cell from actual ink extents (can exceed the metrics-derived
+    # raster bounds by a pixel, so we derive from pixels, not metrics).
+    col_ink = canvases.any(axis=2)  # [C, G, crop_w]
+    any_ink = col_ink.any(axis=1)  # [C, crop_w]
+    wx0 = np.zeros(C, dtype=np.int32)
+    wx1 = np.ones(C, dtype=np.int32)
+    for k in range(C):
+        cols = np.nonzero(any_ink[k])[0]
+        if len(cols):
+            wx0[k], wx1[k] = cols[0], cols[-1] + 1
+        else:
+            wx0[k], wx1[k] = 0, 1
+    win_w = int((wx1 - wx0).max())
+    wx1 = np.minimum(wx0 + win_w, crop_w)
+    wx0 = wx1 - win_w
+    np.clip(wx0, 0, None, out=wx0)
+
+    templates = np.zeros((C, G, crop_h, win_w), dtype=np.uint8)
+    for k in range(C):
+        w = min(win_w, crop_w - wx0[k])
+        templates[k, :, :, :w] = canvases[k, :, :, wx0[k] : wx0[k] + w]
+
+    # ||T||^2 over the FULL line canvas, not the window: the metric's argmin
+    # equals the reference's whole-canvas SSD argmin only with this term
+    t64 = canvases.astype(np.int64)
+    tsq = (t64 * t64).sum(axis=(2, 3))
+    # ||T||^2 exceeds i32 only for very large dense glyphs (>~33k ink px);
+    # keep the compact i32 when safe, widen otherwise
+    if tsq.max() < 2**31:
+        tsq = tsq.astype(np.int32)
+    return GridBank(
+        alphabet=alphabet,
+        templates=templates,
+        tsq=tsq,
+        wx0=wx0,
+        positions=positions,
+        crop_w=crop_w,
+        crop_h=crop_h,
+        monospace=True,
+    )
+
+
+def grid_bank_settings(font_path: str, alphabet: str, ropts: RenderOptions, crop_w: int) -> dict:
+    """Everything a grid bank depends on besides its crop height, as saved
+    beside it: a loaded bank is used only under the settings it was rendered
+    with."""
+    return {
+        "font": os.path.basename(font_path),
+        "size": float(ropts.size),
+        "kern_x": float(ropts.kern_x),
+        "hinting": [bool(ropts.hinting.full), float(ropts.hinting.size)],
+        "alphabet": alphabet,
+        "crop_w": int(crop_w),
+    }
+
+
+def grid_bank_arrays(banks: list[GridBank], settings: dict) -> dict[str, np.ndarray]:
+    """The .npz fields of a saved grid bank set (see load_grid_bank): one
+    bank per crop height, all of one alphabet and crop width."""
+    out = {"grid_bank_settings": np.array(json.dumps(settings, sort_keys=True))}
+    for bank in banks:
+        if bank.alphabet != settings["alphabet"] or bank.crop_w != settings["crop_w"]:
+            raise ValueError("grid bank set: every bank must match the settings")
+        h = bank.crop_h
+        out[f"grid_h{h}_templates"] = bank.templates
+        out[f"grid_h{h}_tsq"] = bank.tsq
+        out[f"grid_h{h}_wx0"] = bank.wx0
+        out[f"grid_h{h}_positions"] = bank.positions
+    return out
+
+
+def save_grid_bank(path: str, banks: list[GridBank], settings: dict) -> None:
+    np.savez_compressed(path, **grid_bank_arrays(banks, settings))
+
+
+def load_grid_bank(path: str) -> tuple[dict[int, GridBank], dict]:
+    """({crop_h: GridBank}, the settings the banks were rendered with)."""
+    with np.load(path, allow_pickle=False) as z:
+        settings = json.loads(str(z["grid_bank_settings"]))
+        heights = sorted(
+            int(k[len("grid_h") : -len("_templates")])
+            for k in z.files
+            if k.startswith("grid_h") and k.endswith("_templates")
+        )
+        banks = {
+            h: GridBank(
+                alphabet=settings["alphabet"],
+                templates=z[f"grid_h{h}_templates"],
+                tsq=z[f"grid_h{h}_tsq"],
+                wx0=z[f"grid_h{h}_wx0"],
+                positions=z[f"grid_h{h}_positions"],
+                crop_w=settings["crop_w"],
+                crop_h=h,
+                monospace=True,
+            )
+            for h in heights
+        }
+    return banks, settings
 
 
 @dataclass(frozen=True)

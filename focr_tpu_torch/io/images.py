@@ -5,9 +5,15 @@ The counterpart of focr_tpu/io/images.py. PGM (P5) and PPM (P6) are what
 and writes them itself; PNG and the rest go through Pillow where it is
 installed. RGB pages decode with the image crate's integer Rec.709 luma
 (luma = (2126*r + 7152*g + 722*b) / 10000, truncating), as in focr_tpu.
+
+Batching (focr): pages are grouped into same-shape buckets, decoded a batch
+at a time.
 """
 
 from __future__ import annotations
+
+import concurrent.futures as _futures
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -78,6 +84,38 @@ def load_gray(path: str) -> np.ndarray:
     return _luma(rgb)
 
 
+def load_gray_many(paths: list[str], max_workers: int = 8) -> list[np.ndarray]:
+    """Threaded page loader (file reads and Pillow's decode release the GIL).
+
+    Replaces the reference's rayon page fan-out for the I/O stage
+    (main.rs:442-448); the first unreadable page raises.
+    """
+    if len(paths) <= 1:
+        return [load_gray(p) for p in paths]
+    with _futures.ThreadPoolExecutor(max_workers=max_workers) as ex:
+        return list(ex.map(load_gray, paths))
+
+
+def load_gray_many_isolated(
+    paths: list[str], max_workers: int = 8
+) -> tuple[list[np.ndarray | None], list[tuple[int, str]]]:
+    """Fault-isolating page loader: a bad page yields None for its slot plus
+    an (index, error) record instead of killing the whole batch (the
+    reference panics on the first unreadable page, main.rs:448)."""
+
+    def one(path: str):
+        try:
+            return load_gray(path), None
+        except Exception as e:  # noqa: BLE001 - isolate any per-page failure
+            return None, f"{type(e).__name__}: {e}"
+
+    with _futures.ThreadPoolExecutor(max_workers=max_workers) as ex:
+        results = list(ex.map(one, paths))
+    pages = [r[0] for r in results]
+    errors = [(i, r[1]) for i, r in enumerate(results) if r[1] is not None]
+    return pages, errors
+
+
 def save_gray(path: str, img: np.ndarray) -> None:
     """Write u8 [H, W]: binary PGM for a .pgm path, Pillow otherwise."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
@@ -94,3 +132,23 @@ def save_gray(path: str, img: np.ndarray) -> None:
             f"{path}: writing anything but .pgm needs Pillow, which is not installed"
         ) from None
     Image.fromarray(img, mode="L").save(path)
+
+
+@dataclass(frozen=True)
+class Bucket:
+    """Pages sharing one (H, W) shape, batched into a single array."""
+
+    shape: tuple[int, int]
+    indices: list[int]  # original page indices, in order
+    pages: np.ndarray  # [B, H, W] u8
+
+
+def bucket_pages(pages: list[np.ndarray]) -> list[Bucket]:
+    """Group pages by shape, in order of each shape's first page."""
+    groups: dict[tuple[int, int], list[int]] = {}
+    for i, p in enumerate(pages):
+        groups.setdefault(p.shape, []).append(i)
+    return [
+        Bucket(shape=shape, indices=idxs, pages=np.stack([pages[i] for i in idxs], axis=0))
+        for shape, idxs in groups.items()
+    ]

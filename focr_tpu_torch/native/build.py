@@ -3,9 +3,10 @@ interface -> ctypes).
 
 The library is built at first use into focr_tpu_torch/_build/, named by a hash
 of the sources, the flags and the compiler, so a fresh checkout builds once
-and a source edit rebuilds. Flags: sm_90a (Hopper), and --fmad=false with no
-fast-math, because the sweep's f32 threshold test relies on every op rounding
-on its own (see csrc/ncc_sweep.cu).
+and a source edit rebuilds. Each source compiles in its own nvcc process, all
+started together, and one more links the objects. Flags: sm_90a (Hopper), and
+--fmad=false with no fast-math, because the ncc sweep's f32 threshold test
+relies on every op rounding on its own (see csrc/ncc_sweep.cu).
 
 Run ``python -m focr_tpu_torch.native.build`` to build ahead of time and print
 the compiler's register and shared-memory report.
@@ -24,11 +25,11 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ncc_sweep.cu", "ncc_compact.cu")
+SOURCES = ("ncc_sweep.cu", "ncc_compact.cu", "focr_ssd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -54,7 +55,21 @@ def library_path(compiler: str) -> str:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update("\0".join(NVCC_FLAGS + (compiler,)).encode())
-    return os.path.join(BUILD_DIR, f"libfocr_ncc-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libfocr_kernels-{h.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently; raise with the first failure's output,
+    else return each one's compiler output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
 
 
 def build(report: bool = False) -> str:
@@ -65,22 +80,18 @@ def build(report: bool = False) -> str:
     if os.path.exists(out) and not report:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [compiler, *NVCC_FLAGS, *(["-Xptxas", "-v"] if report else []),
-           "-o", tmp, *(os.path.join(_CSRC, s) for s in SOURCES)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-            )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, s.replace(".cu", ".o")) for s in SOURCES]
+        verbose = ["-Xptxas", "-v"] if report else []
+        logs = _run_all([
+            [compiler, *NVCC_FLAGS, *verbose, "-c", "-o", o, os.path.join(_CSRC, s)]
+            for s, o in zip(SOURCES, objs)
+        ])
+        tmp = os.path.join(tmpdir, "lib.so")
+        logs += _run_all([[compiler, "-shared", "-o", tmp, *objs]])
         if report:
-            print(res.stdout + res.stderr, file=sys.stderr)
+            print("".join(logs), file=sys.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 
@@ -95,6 +106,8 @@ def load() -> ctypes.CDLL:
     lib.focr_ncc_sweep.restype = i
     lib.focr_ncc_compact.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
     lib.focr_ncc_compact.restype = i
+    lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, i, i, i, p, p, p]
+    lib.focr_ssd_argmin.restype = i
     _lib = lib
     return lib
 

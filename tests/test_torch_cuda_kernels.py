@@ -1,4 +1,4 @@
-"""K1 and K2 on a CUDA card against their plain PyTorch versions, exactly.
+"""K1, K2 and K4 on a CUDA card against their plain PyTorch versions, exactly.
 
 Marked ``cuda``: each test skips without a card. On a machine with one, run
 
@@ -8,11 +8,13 @@ Marked ``cuda``: each test skips without a card. On a machine with one, run
 need not have; this file imports neither jax nor focr_tpu).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from focr_tpu_torch.ops import ncc_kernels
+from focr_tpu_torch.ops import ncc_kernels, ssd_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -67,3 +69,62 @@ def test_kernels_match_plain_versions(cuda, case):
     out_r = ncc_kernels.compact_hits_reference(mask, rcnt)
     assert all(torch.equal(a, b) for a, b in zip(out, out_r))
     assert int(out[3].sum()) > 0
+
+
+FOCR_FIXTURE = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "fixtures", "torch_focr_golden.npz"
+)
+
+
+def _ssd_inputs(case, seed):
+    """(strips, templates, tsq, wx0) for K4 as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    if case == "corpus":
+        from focr_tpu_torch.fonts.bank import load_grid_bank
+        from focr_tpu_torch.models.focr import crop_strips
+
+        banks, _ = load_grid_bank(FOCR_FIXTURE)
+        with np.load(FOCR_FIXTURE, allow_pickle=False) as z:
+            pages = z["pages"]
+        bank = banks[12]
+        ys = tuple(39 + 15 * i for i in range(50))
+        strips = crop_strips(pages, ys, 12, 45, 608)
+        return strips, bank.templates, bank.tsq.astype(np.int64), bank.wx0
+    B, R, h, crop_w, C, G, win_w = {
+        "noise": (4, 9, 12, 608, 78, 67, 9),
+        "dup-glyph": (2, 5, 12, 200, 24, 40, 9),
+        "narrow": (3, 4, 5, 20, 4, 7, 9),
+        "wide-window": (2, 3, 16, 300, 10, 70, 40),
+        "i64-dot": (1, 2, 1, 40000, 2, 33, 34000),
+    }[case]
+    strips = rng.integers(0, 256, (B, R, h, crop_w)).astype(np.uint8)
+    strips[0, 0] = 255
+    if case == "noise":
+        strips[1] = np.clip(rng.integers(250, 262, (R, h, crop_w)), 0, 255)
+    templates = rng.integers(0, 256, (C, G, h, win_w), dtype=np.uint8)
+    templates[templates < 140] = 0
+    wx0 = np.minimum(np.arange(C) * (crop_w // C), crop_w - 1).astype(np.int32)
+    if case == "narrow":
+        wx0 = np.array([0, 7, 14, 19], np.int32)  # windows hang past crop_w
+    tsq = (templates.astype(np.int64) ** 2).sum(axis=(2, 3))
+    if case == "dup-glyph":
+        templates[:, 30] = templates[:, 3]
+        templates[:, [5, 12, 20]] = 0  # empty glyphs: exact ties on white windows
+        tsq = (templates.astype(np.int64) ** 2).sum(axis=(2, 3))
+        strips[:, :, :, :] = 255
+        strips[0, 1] = rng.integers(0, 256, (h, crop_w))
+    return strips, templates, tsq, wx0
+
+
+@pytest.mark.parametrize("case", ["corpus", "noise", "dup-glyph", "narrow", "wide-window",
+                                  "i64-dot"])
+def test_ssd_argmin_matches_plain_version(cuda, case):
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in _ssd_inputs(case, seed=len(case))]
+    ssd_kernels.reset_launches()
+    ids, white = ssd_kernels.ssd_argmin(*args)
+    torch.cuda.synchronize()
+    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 1}
+    ids_r, white_r = ssd_kernels.ssd_argmin_reference(*args)
+    assert torch.equal(ids, ids_r) and torch.equal(white, white_r)
+    assert not bool(white.all()) and (case == "corpus" or bool(white[0, 0]))
