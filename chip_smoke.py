@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives both slices of the port at their canonical workloads, from golden
+Drives every slice of the port at its canonical workload, from golden
 fixtures made by focr_tpu on a CPU with saved glyph banks, so no FreeType is
 needed:
 
@@ -14,6 +14,10 @@ needed:
          alphabet, grid -x 45 -y 39 -w 608 --line-height 12 --line-advance 15
          (78 cells, 50 full rows and one 3-pixel bottom row), 792x662 pages of
          48 lines x 77 characters (tests/fixtures/torch_focr_golden.npz)
+  prop — bench.py's prop corpus: DejaVu Sans 13, the same alphabet with ' '
+         -> 'A' and '>' -> 'B' (67 glyphs, 65 characters: exact ties), the
+         same grid, 792x662 pages of 48 lines x 60 characters
+         (tests/fixtures/torch_prop_golden.npz)
 
 Phases, each of which raises on failure:
 
@@ -43,6 +47,25 @@ Phases, each of which raises on failure:
                just after, once as `python -m focr_tpu_torch.cli.focr`; both
                exit 0 with the same stdout, equal to focr_tpu's lines, and
                every page's text is found in its lines
+  9. prop-kernels — K5 (prop_scan) against its plain PyTorch version on the
+               card, exact (tolerance 0 on ids), on the 16-page prop wave
+               cropped as GridDecoder crops it (both row groups), seeded noise
+               strips and a narrow strip whose windows hang past its edge; K1's
+               wide instance against its plain version, bit for bit, on seeded
+               21x13 needles (the -t 20 size) with planted matches, at a
+               threshold above and one below ε, and its hits after the exact
+               replay against a host exact search; then both timed with CUDA
+               events
+ 10. prop-golden — GridDecoder on the card decodes the 16 prop pages, and one
+               page through the single-image path, to focr_tpu's lines, through
+               K5
+ 11. prop-cli — the focr CLI with DejaVu Sans, the prop alphabet and grid and
+               --grid-bank of the prop fixture: once in-process with K5's
+               launch count reset just before and read just after, once as
+               `python -m focr_tpu_torch.cli.focr`; both exit 0 with the same
+               stdout, equal to focr_tpu's lines (the prop corpus' acceptance
+               rule, bench.py:209-216: a greedy proportional decode derails on
+               look-alike glyphs on every engine, so the text is not compared)
 
 Then one JSON line of the kernels, the card line, and last
 {"ok": true, "device": {...}}.
@@ -62,9 +85,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_ncc_golden.npz")
 FOCR_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_focr_golden.npz")
+PROP_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_prop_golden.npz")
 FOCR_GRID = ["-x", "45", "-y", "39", "-w", "608", "--line-height", "12", "--line-advance", "15"]
-# the font the fixture's bank was rendered from; only its name is checked
+# the fonts the fixtures' banks were rendered from; only their names are checked
 FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSansMono.ttf"
+SANS_FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
 THRESHOLD = 0.8
 
 
@@ -234,6 +259,197 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
              "replaces": "focr_tpu/models/focr.py:60", "launches": launches,
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     return entry, B / wall, B / sub_wall
+
+
+def wide_sweep_checks(dev) -> tuple[int, float, float]:
+    """Phase 9's K1 wide-instance checks. Returns (max|err| against the plain
+    version, kernel ms/page, plain ms/page)."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.ops import ncc_kernels as K
+
+    def planted(B, H, W, T, seed):
+        rng = np.random.default_rng(seed)
+        imgs = ((rng.random((B, H, W)) < 0.15) * rng.integers(0, 256, (B, H, W))).astype(np.uint8)
+        needles = rng.integers(0, 256, (T, 21, 13), dtype=np.uint8)
+        for b in range(B):
+            for _ in range(3 * T):
+                t, y, x = rng.integers(T), rng.integers(0, H - 21), rng.integers(0, W - 13)
+                imgs[b, y : y + 21, x : x + 13] = needles[t]
+        return imgs, needles
+
+    def run(imgs, needles, thr):
+        T = len(needles)
+        s_n = needles.reshape(T, -1).astype(np.int64).sum(1)
+        s2_n = (needles.reshape(T, -1).astype(np.int64) ** 2).sum(1)
+        dg = ncc_model.group_from_numpy(needles, s_n, s2_n, thr, dev)
+        args = (torch.from_numpy(imgs).to(dev), dg.bank, dg.s_n, dg.s2_n, thr)
+        mask, rcnt = K.ncc_sweep(*args, terms=dg.terms)
+        mask_r, rcnt_r = K.ncc_sweep_reference(*args, terms=dg.terms)
+        torch.cuda.synchronize()
+        return max(max_abs_err(mask, mask_r), max_abs_err(rcnt, rcnt_r)), args, dg, mask, rcnt
+
+    err = 0
+    # the replay check: a small wave, every window searched exactly on the host
+    for thr in (0.8, -0.2):
+        imgs, needles = planted(2, 120, 200, 8, seed=31)
+        e, _, dg, mask, rcnt = run(imgs, needles, thr)
+        pos, off, hcnt, _ = (t.cpu().numpy() for t in K.compact_hits(mask, rcnt))
+        W1 = mask.shape[-1] * 32
+        thr64 = np.float64(np.float32(thr))
+        n_hits = 0
+        for b in range(len(imgs)):
+            wins = np.lib.stride_tricks.sliding_window_view(imgs[b].astype(np.int64), (21, 13))
+            sp, s2p = wins.sum(axis=(2, 3)), (wins * wins).sum(axis=(2, 3))
+            acc = np.einsum("yxij,tij->tyx", wins, needles.astype(np.int64))
+            ends = np.cumsum(hcnt[b].astype(np.int64)) + off[b]
+            for t in range(len(needles)):
+                sim = ncc_model.exact_similarities(
+                    acc[t], sp, s2p, int(dg.s_n[t]), int(dg.s2_n[t]), 21 * 13)
+                ok = (sim != np.inf) & (sim > thr64)
+                ok[0, :] = ok[:, 0] = False
+                want = set(zip(*np.nonzero(ok)))  # (y, x) the exact search accepts
+                cand = pos[ends[t] - hcnt[b, t] : ends[t]].astype(np.int64)
+                ys, xs = cand // W1, cand % W1
+                got = {(y, x) for y, x in zip(ys.tolist(), xs.tolist()) if ok[y, x]}
+                if got != want:
+                    raise AssertionError(f"K1 wide: replayed hits differ (thr {thr}, page {b})")
+                n_hits += len(want)
+        log(f"[prop-kernels] K1 wide instance, 21x13 needles, thr {thr}: vs plain max|err| {e}; "
+            f"{int(rcnt.sum())} candidates hold all {n_hits} exact hits")
+        if e:
+            raise AssertionError(f"K1 wide instance mismatch: max|err| {e}")
+        err = max(err, e)
+    # timing at a -t 20 wave's shape: 74 needles of 21x13 on 792x662 pages
+    imgs, needles = planted(2, 792, 662, 74, seed=32)
+    e, args, dg, _, _ = run(imgs, needles, 0.8)
+    if e:
+        raise AssertionError(f"K1 wide instance mismatch on the -t 20 wave: max|err| {e}")
+    k_ms = cuda_ms(lambda: K.ncc_sweep(*args, terms=dg.terms), 10) / len(imgs)
+    p_ms = cuda_ms(lambda: K.ncc_sweep_reference(*args, terms=dg.terms), 1) / len(imgs)
+    log(f"[prop-kernels] K1 wide instance, 2 pages 792x662, 74 needles 21x13: vs plain "
+        f"max|err| {e}; ms/page K1 {k_ms:.4f} (plain {p_ms:.4f})")
+    return err, k_ms, p_ms
+
+
+def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
+    """Phases 9-11: the proportional focr slice. Returns (K5's kernels entry,
+    K1's wide-instance numbers, in-process CLI pages/s, subprocess CLI
+    pages/s)."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.cli.focr import main as focr_main
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+    from focr_tpu_torch.io.images import save_gray
+    from focr_tpu_torch.models import focr as focr_model
+    from focr_tpu_torch.models.types import DecodeOptions, RenderOptions
+    from focr_tpu_torch.ops import prop_kernels as P
+
+    banks, settings = load_grid_bank(PROP_FIXTURE)
+    with np.load(PROP_FIXTURE, allow_pickle=False) as z:
+        pages = z["pages"]
+        golden = json.loads(str(z["lines"]))
+    alphabet = settings["alphabet"]
+    dopts = DecodeOptions(x_start=45, y_start=39, line_height=12, line_advance=15, width=608)
+    dec = focr_model.GridDecoder(None, alphabet, dopts, RenderOptions(size=13.0),
+                                 pages.shape[1:], dev, banks=banks)
+    B = len(pages)
+    if not dec.prop_groups:
+        raise AssertionError("prop: the decoder did not take its device path")
+
+    # 9. prop-kernels: K5 against its plain version
+    def check(label, strips, pd):
+        f = pd.fwd
+        args = (torch.as_tensor(np.ascontiguousarray(strips)).to(dev), f.templates,
+                f.colsq_cum, f.advances, f.base, f.ox, f.n_steps)
+        ids = P.prop_scan(*args)
+        ids_r = P.prop_scan_reference(*args)
+        torch.cuda.synchronize()
+        e = max_abs_err(ids, ids_r)
+        steps = int((ids != P.END_ID).sum(dim=1).max())
+        log(f"[prop-kernels] {label}: strips {tuple(strips.shape)}, K5 vs plain max|err| {e}, "
+            f"longest line {steps} of {f.n_steps} steps")
+        if e:
+            raise AssertionError(f"K5 mismatch on {label}: max|err| {e}")
+        return e, args
+
+    inv = np.subtract(255, pages, dtype=np.uint8)
+    err, ms, plain_ms = 0, 0.0, 0.0
+    for grp, pd in dec.prop_groups:
+        strips = np.stack([inv[:, y : y + grp.crop_h, dec.x0 : dec.x0 + dec.crop_w]
+                           for y in grp.ys], axis=1).reshape(-1, grp.crop_h, dec.crop_w)
+        e, args = check(f"prop wave, row group h={grp.crop_h} ({len(grp.ys)} rows)", strips, pd)
+        err = max(err, e)
+        k_ms = cuda_ms(lambda: P.prop_scan(*args), 10) / B
+        p_ms = cuda_ms(lambda: P.prop_scan_reference(*args), 2) / B
+        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        log(f"[prop-kernels] row group h={grp.crop_h} ms/page: K5 {k_ms:.5f} (plain {p_ms:.5f})")
+    pd12 = dec.prop_groups[0][1]
+    rng = np.random.default_rng(17)
+    err = max(err, check("seeded noise strips", rng.integers(0, 256, (48, 12, 608),
+                                                             dtype=np.uint8), pd12)[0])
+    narrow = focr_model.GridDecoder(None, alphabet, DecodeOptions(
+        x_start=0, y_start=0, line_height=12, line_advance=15, width=20), RenderOptions(size=13.0),
+        (12, 20), dev, banks=banks).prop_groups[0][1]
+    err = max(err, check("narrow strip, windows hang past its edge",
+                         rng.integers(0, 256, (6, 12, 20), dtype=np.uint8), narrow)[0])
+    wide_err, wide_ms, wide_plain_ms = wide_sweep_checks(dev)
+
+    # 10. prop-golden: GridDecoder on the card reproduces focr_tpu's lines
+    P.reset_launches()
+    got = [[[ln.text, ln.y] for ln in p] for p in dec.decode_batch(pages)]
+    n_golden = P.LAUNCHES["prop_scan"]
+    if got != golden or not n_golden:
+        raise AssertionError(f"prop golden pages: lines differ or K5 not launched ({n_golden})")
+    P.reset_launches()
+    single = [[ln.text, ln.y] for ln in focr_model.decode_single_stream(dec, pages[5])]
+    if single != golden[5] or not P.LAUNCHES["prop_scan"]:
+        raise AssertionError("prop single page: lines differ or K5 not launched")
+    log(f"[prop-golden] {B} pages: {sum(map(len, got))} lines identical to focr_tpu's; "
+        f"K5 launches {n_golden}; one page through the single-image path: identical")
+
+    # 11. prop-cli: the focr CLI on the 16 pages, with the saved prop bank
+    want_out = "".join(f"{text}\n" for p in golden for text, _ in p)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for k, p in enumerate(pages):
+            paths.append(os.path.join(tmp, f"page{k:02d}.pgm"))
+            save_gray(paths[-1], p)
+        argv = ["-i", *paths, "-f", SANS_FONT, "-t", "13", "-a", alphabet, *FOCR_GRID,
+                "--grid-bank", PROP_FIXTURE]
+        buf = io.StringIO()
+        P.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = focr_main(argv)
+        wall = time.perf_counter() - t0
+        launches = P.LAUNCHES["prop_scan"]
+        if rc != 0 or not launches:
+            raise AssertionError(f"in-process prop CLI: rc {rc}, K5 launches {launches}")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "focr_tpu_torch.cli.focr", *argv],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        sub_wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"prop CLI exited {res.returncode}: {res.stderr[-2000:]}")
+    if res.stdout != buf.getvalue():
+        raise AssertionError("prop CLI subprocess stdout differs from the in-process run")
+    if res.stdout != want_out:
+        raise AssertionError("prop CLI: the lines differ from focr_tpu's")
+    log(f"[prop-cli] exit 0; {B} pages, {len(res.stdout.splitlines())} lines (identical to "
+        f"focr_tpu's); in-process {B / wall:.2f} pages/s ({wall:.3f} s), subprocess "
+        f"{B / sub_wall:.2f} pages/s ({sub_wall:.2f} s incl. start-up); K5 launches {launches}; "
+        f"card {card}")
+    entry = {"name": "prop_scan", "route": "cuda", "source": "focr_tpu_torch/csrc/focr_prop.cu",
+             "replaces": "focr_tpu/models/focr_prop.py:49", "launches": launches,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    wide = {"wide_max_abs_err": wide_err, "wide_ms": wide_ms, "wide_plain_ms": wide_plain_ms}
+    return entry, wide, B / wall, B / sub_wall
 
 
 def main() -> int:
@@ -414,10 +630,17 @@ def main() -> int:
     # 6-8. the focr slice
     k4, focr_pps, focr_sub_pps = focr_phases(dev, card)
     kernels.append(k4)
+    # 9-11. the proportional focr slice, with K1's wide instance
+    k5, wide, prop_pps, prop_sub_pps = prop_phases(dev, card)
+    kernels[0].update(wide)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], wide["wide_max_abs_err"])
+    kernels.append(k5)
     print(json.dumps({"kernels": kernels, "cli_pages_per_s": len(pages) / wall,
                       "cli_subprocess_pages_per_s": len(pages) / sub_wall,
                       "focr_cli_pages_per_s": focr_pps,
-                      "focr_cli_subprocess_pages_per_s": focr_sub_pps}), flush=True)
+                      "focr_cli_subprocess_pages_per_s": focr_sub_pps,
+                      "prop_cli_pages_per_s": prop_pps,
+                      "prop_cli_subprocess_pages_per_s": prop_sub_pps}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,18 @@
 
 focr_tpu (JAX, TPU) is the reference; this package keeps its module layout and
 names, imports torch and never jax, and shares no code with it. It runs the
-two binaries' main paths: `focr` (the monospace grid decoder; proportional
-alphabets go to the NumPy oracle) and `ncc` (the template matcher).
+two binaries' main paths: `focr` (the monospace grid decoder and the
+proportional greedy decoder) and `ncc` (the template matcher).
 
-  fonts/     host font layer: ctypes FreeType, the focr grid bank and the ncc
-             needle bank (both can be saved and loaded as .npz)
-  ops/       device ops: the SSD-argmin kernel (focr), window stats, the NCC
-             sweep and compaction kernels (ncc), each beside its plain version
+  fonts/     host font layer: ctypes FreeType, the focr grid and proportional
+             banks and the ncc needle bank (all can be saved and loaded as .npz)
+  ops/       device ops: the SSD-argmin and cursor-scan kernels (focr), window
+             stats, the NCC sweep and compaction kernels (ncc), each beside its
+             plain version
   csrc/      the hand-written CUDA C++ kernels (sm_90a)
   native/    nvcc build + ctypes binding of csrc/
-  models/    the focr grid decoder, the ncc matcher and hit post-processing
+  models/    the focr grid and proportional decoders, the ncc matcher and hit
+             post-processing
   io/        page I/O (PGM/PPM in NumPy), page buckets, synthetic pages
   cli/       the focr and ncc command lines
   oracle/    the NumPy focr and ncc oracles

@@ -35,9 +35,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (the CUDA kernel; default) or cpu (its plain PyTorch version)")
     p.add_argument("--grid-bank", default=None, metavar="NPZ",
-                   help="load the glyph templates from a saved grid bank "
-                        "(fonts/bank.py::save_grid_bank) instead of rendering them "
-                        "with FreeType; its settings must match the flags")
+                   help="load the glyph templates from a saved focr bank set, grid "
+                        "(monospace) or proportional (fonts/bank.py::save_grid_bank), "
+                        "instead of rendering them with FreeType; its settings must "
+                        "match the flags")
     return p
 
 
@@ -66,7 +67,7 @@ def main(argv: list[str] | None = None) -> int:
     banks = None
     if args.grid_bank is not None:
         banks, saved = load_grid_bank(args.grid_bank)
-        want = grid_bank_settings(args.font, args.alphabet, ropts, args.width)
+        want = grid_bank_settings(args.font, args.alphabet, ropts, args.width, saved["kind"])
         if saved != want:
             print(f"focr: error: {args.grid_bank} was rendered with {saved}, "
                   f"the flags ask for {want}", file=sys.stderr)

@@ -38,6 +38,27 @@
 // each warp owns one (row, word) item at a time, one window column a lane,
 // and packs the keep bits with __ballot_sync. Row counts are summed with
 // integer atomics (exact), as several column tiles share a row.
+//
+// The wide instance (WIDE = true) serves what the test above does not:
+// needles with n·65025 >= 2^24, where the int -> f32 casts round, or
+// thr−ε <= 0, where num > c·den is no longer sim > c. It keeps the same
+// integer sums (u32 __dp4a, exact while n·65025 < 2^32; the host refuses
+// n·65025 >= 2^31, as focr_tpu's i32 correlate does) and replaces the test by
+// focr_tpu/ops/ncc.py::ncc_candidates (:193-232), op for op in f32, with no
+// FMA:
+//
+//   valid  = sp > 0 && n·s2p − sp² > 0 (exact int64) && needle norm² > 0
+//   norm2p = f32(s2p) − f32(sp)·f32(sp) / f32(n)
+//   num    = f32(acc) − (f32(Σn)·f32(sp))·(1/n)
+//   den    = (rn[t]·sqrt(max(norm2p ± err_p, 0)))·(1 ± 2⁻²¹)
+//   keep   = valid && x, y >= 1 && num > (thr−ε)·den − slack
+//
+// with the lower bound of den for thr−ε >= 0 and the upper one below 0
+// (rn[t] carries the needle's side, NaN for a zero-variance needle, which
+// fails every compare); err_p = 8·2⁻²⁴·n·65025 and slack = 32·2⁻²⁴·n·65025
+// + 16 cover every rounding, so the set is still a superset. Where the needle
+// tile would overflow shared memory, the wide instance reads the host-packed
+// needle words from device memory instead (L1 broadcasts).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,13 +71,22 @@ constexpr int XW = 8;       // 32-column words per block: 256 window columns
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 
+// Scalars of the wide instance's test (see above), computed by the host.
+struct WideTest {
+    float err;    // ±err_p: −err_p for thr−ε >= 0 (den_lo), +err_p below (den_hi)
+    float c_den;  // 1 − 2⁻²¹ or 1 + 2⁻²¹, the same side
+    float slack;
+};
+
+template <bool WIDE>
 __global__ void __launch_bounds__(NTHREADS)
 ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
                  const uint8_t* __restrict__ needles, int T, int nh, int nw,
                  const float* __restrict__ sn_n, const float* __restrict__ rtn,
                  float thr_eps, float inv_n,
                  int32_t* __restrict__ mask, int32_t* __restrict__ rcnt,
-                 int Hs, int NW, int n_xt, int pitch)
+                 int Hs, int NW, int n_xt, int pitch,
+                 const uint32_t* __restrict__ nd_words, WideTest wt)
 {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float sn_s[TT];
@@ -65,8 +95,10 @@ ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
     const int nw4 = (nw + 3) >> 2;  // 4-byte needle words per needle row
     // nd_s[(dy·nw4 + q)·TT + t]: byte k = needle[t0+t][dy][4q+k], 0 past nw/T
     uint32_t* nd_s = reinterpret_cast<uint32_t*>(smem);
+    // the wide instance may read the same layout from device memory
+    const bool nd_global = WIDE && nd_words != nullptr;
     // img_s[r·pitch + c] = page[y0 + r][xb + c], 0 outside the page
-    unsigned char* img_s = smem + static_cast<size_t>(nh) * nw4 * TT * 4;
+    unsigned char* img_s = smem + (nd_global ? 0 : static_cast<size_t>(nh) * nw4 * TT * 4);
 
     const int xt = blockIdx.x % n_xt;
     const int band = blockIdx.x / n_xt;
@@ -77,7 +109,9 @@ ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
     const int xb = g0 * 32;
     const int tid = threadIdx.x;
 
-    for (int i = tid; i < nh * nw4 * TT; i += NTHREADS) {
+    const uint32_t* nd = nd_s;
+    if (nd_global) nd = nd_words + static_cast<size_t>(blockIdx.y) * nh * nw4 * TT;
+    for (int i = tid; !nd_global && i < nh * nw4 * TT; i += NTHREADS) {
         const int t = i % TT;
         const int q = (i / TT) % nw4;
         const int dy = i / (TT * nw4);
@@ -127,7 +161,7 @@ ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
         for (int dy = 0; dy < nh; ++dy) {
             const uint32_t* rw =
                 reinterpret_cast<const uint32_t*>(img_s + (r + dy) * pitch) + (xl >> 2);
-            const uint4* ndr = reinterpret_cast<const uint4*>(nd_s + dy * nw4 * TT);
+            const uint4* ndr = reinterpret_cast<const uint4*>(nd + dy * nw4 * TT);
             uint32_t lo = rw[0];
             for (int q = 0; q < nw4; ++q) {
                 const uint32_t hi = rw[q + 1];
@@ -152,20 +186,43 @@ ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
             }
         }
 
-        // every value below is an exact integer < 2^24 (n·65025 < 2^24 is
-        // the wrapper's gate), so the int -> f32 conversions are exact
-        const float spf = static_cast<float>(static_cast<int>(sp));
-        const float s2pf = static_cast<float>(static_cast<int>(s2p));
-        const float norm2p = __fmaf_rn(-__fmul_rn(spf, spf), inv_n, s2pf);
-        const bool row_ok = spf > 0.f && norm2p > -8.f && x >= 1 && x < Wv && y >= 1;
-        const float qlo = __fsqrt_rn(fmaxf(__fsub_rn(norm2p, 8.f), 0.f));
+        bool row_ok;
+        float spf, q;
+        if constexpr (WIDE) {
+            // sp < 2^24 converts exactly; s2p and acc (< 2^31) round, as in
+            // ncc_candidates
+            spf = __int2float_rn(static_cast<int>(sp));
+            const float norm2p = __fsub_rn(__int2float_rn(static_cast<int>(s2p)),
+                                           __fdiv_rn(__fmul_rn(spf, spf),
+                                                     __int2float_rn(nh * nw)));
+            const long long var = static_cast<long long>(nh * nw) * s2p
+                                  - static_cast<long long>(sp) * sp;
+            row_ok = sp > 0 && var > 0 && x >= 1 && x < Wv && y >= 1;
+            q = __fsqrt_rn(fmaxf(__fadd_rn(norm2p, wt.err), 0.f));
+        } else {
+            // every value below is an exact integer < 2^24 (n·65025 < 2^24
+            // picks this instance), so the int -> f32 conversions are exact
+            spf = static_cast<float>(static_cast<int>(sp));
+            const float s2pf = static_cast<float>(static_cast<int>(s2p));
+            const float norm2p = __fmaf_rn(-__fmul_rn(spf, spf), inv_n, s2pf);
+            row_ok = spf > 0.f && norm2p > -8.f && x >= 1 && x < Wv && y >= 1;
+            q = __fsqrt_rn(fmaxf(__fsub_rn(norm2p, 8.f), 0.f));
+        }
 #pragma unroll
         for (int t = 0; t < TT; ++t) {
             if (t0 + t >= T) break;  // whole warp
-            const float num =
-                __fmaf_rn(-sn_s[t], spf, static_cast<float>(static_cast<int>(acc[t])));
-            const float rhs = __fmaf_rn(thr_eps, __fmul_rn(rtn_s[t], qlo), -48.f);
-            const bool keep = row_ok && num > rhs;
+            bool keep;
+            if constexpr (WIDE) {
+                const float num = __fsub_rn(__uint2float_rn(acc[t]),
+                                            __fmul_rn(__fmul_rn(sn_s[t], spf), inv_n));
+                const float den = __fmul_rn(__fmul_rn(rtn_s[t], q), wt.c_den);
+                keep = row_ok && num > __fsub_rn(__fmul_rn(thr_eps, den), wt.slack);
+            } else {
+                const float num =
+                    __fmaf_rn(-sn_s[t], spf, static_cast<float>(static_cast<int>(acc[t])));
+                const float rhs = __fmaf_rn(thr_eps, __fmul_rn(rtn_s[t], q), -48.f);
+                keep = row_ok && num > rhs;
+            }
             const uint32_t m = __ballot_sync(0xffffffffu, keep);
             if (lane == 0) {
                 const size_t row = (static_cast<size_t>(b) * T + t0 + t) * Hs + y;
@@ -180,12 +237,20 @@ ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
 
 // imgs u8 [B, H, W]; needles u8 [T, nh, nw]; sn_n, rtn f32 [T];
 // mask int32 [B, T, H-nh+1, NW] (every word written); rcnt int32
-// [B, T, H-nh+1], zeroed by the caller. Returns cudaGetLastError().
+// [B, T, H-nh+1], zeroed by the caller. wide = 0: the narrow test (sn_n =
+// Σn/n, rtn = √norm² or +inf, inv_n = f32(1/n)); wide = 1: the wide test
+// (sn_n = f32(Σn), rtn = the needle's side of den or NaN, inv_n = 1/f32(n),
+// and err, c_den, slack); nd_words, for the wide test only and may be null:
+// the needle words packed as [ceil(T/8), nh, ceil(nw/4), 8] u32, read from
+// device memory in place of the shared-memory tile. Returns
+// cudaGetLastError().
 extern "C" int focr_ncc_sweep(const void* imgs, int B, int H, int W,
                               const void* needles, int T, int nh, int nw,
                               const void* sn_n, const void* rtn,
                               float thr_eps, float inv_n,
-                              void* mask, void* rcnt, void* stream)
+                              void* mask, void* rcnt, void* stream,
+                              int wide, const void* nd_words,
+                              float err, float c_den, float slack)
 {
     const int Hs = H - nh + 1;
     const int NW = (W - nw + 1 + 31) / 32;
@@ -193,21 +258,22 @@ extern "C" int focr_ncc_sweep(const void* imgs, int B, int H, int W,
     const int pitch = XW * 32 + 4 * nw4;  // covers x + dx and the funnel's next word
     const int n_bands = (Hs + TR - 1) / TR;
     const int n_xt = (NW + XW - 1) / XW;
-    const size_t smem = static_cast<size_t>(nh) * nw4 * TT * 4
+    const size_t smem = (wide && nd_words ? 0 : static_cast<size_t>(nh) * nw4 * TT * 4)
                         + static_cast<size_t>(TR + nh - 1) * pitch;
+    auto kernel = wide ? ncc_sweep_kernel<true> : ncc_sweep_kernel<false>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            ncc_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     const dim3 grid(n_bands * n_xt, (T + TT - 1) / TT, B);
-    ncc_sweep_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(imgs), H, W,
         static_cast<const uint8_t*>(needles), T, nh, nw,
         static_cast<const float*>(sn_n), static_cast<const float*>(rtn),
         thr_eps, inv_n,
         static_cast<int32_t*>(mask), static_cast<int32_t*>(rcnt),
-        Hs, NW, n_xt, pitch);
+        Hs, NW, n_xt, pitch, static_cast<const uint32_t*>(nd_words),
+        WideTest{err, c_den, slack});
     return static_cast<int>(cudaGetLastError());
 }

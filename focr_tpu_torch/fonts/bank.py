@@ -1,15 +1,15 @@
 """Template banks: every glyph rendered once at startup, matched on the device.
 
-The grid half (GridBank, build_grid_bank — focr_tpu/fonts/bank.py:28-173) and
-the needle half (:307-454) of focr_tpu/fonts/bank.py, minus its disk cache
-(the canonical banks render in about a second). The proportional bank comes
-with its slice.
+focr_tpu/fonts/bank.py minus its disk cache (the canonical banks render in a
+second or two): the grid bank (GridBank, build_grid_bank — :28-173) for
+monospace alphabets, the 64-phase proportional bank (PropBank,
+build_prop_bank — :181-298) and the ncc needles (:307-454).
 
-Either bank can also be saved to and loaded from an .npz file
+Every bank can also be saved to and loaded from an .npz file
 (save_grid_bank / load_grid_bank, save_needle_bank / load_needle_bank), so a
 machine without FreeType can decode with glyphs rendered elsewhere. A saved
-grid bank holds one GridBank per crop height, so every page height on its
-grid is served.
+focr bank set holds one grid or proportional bank per crop height (its
+settings name the kind), so every page height on its grid is served.
 """
 
 from __future__ import annotations
@@ -147,61 +147,183 @@ def build_grid_bank(
     )
 
 
-def grid_bank_settings(font_path: str, alphabet: str, ropts: RenderOptions, crop_w: int) -> dict:
-    """Everything a grid bank depends on besides its crop height, as saved
+PROP_PHASES = 64  # FreeType quantizes translations to 1/64 px (26.6 fixed)
+
+
+@dataclass(frozen=True)
+class PropBank:
+    """Per-(glyph, subpixel-phase) templates for the sequential greedy decode
+    of a proportional alphabet (focr_tpu/fonts/bank.py:184-216).
+
+    FreeType rounds the rasterization translation to 1/64 px, and a shift by
+    whole pixels moves the coverage bitmap exactly, so the bitmap the
+    reference draws at cursor t is templates[g, round(t*64) % 64] shifted by
+    round(t*64) // 64 px: 64 phases make the decode exact.
+
+    templates[g, p] is glyph g rendered at x = base + p/64 into a
+    (crop_h × wbank) canvas; colsq_cum[g, p, c] = Σ_{cols<c} Σ_rows T² gives
+    the exact clipped ‖T‖² when the window hangs past the line canvas' edge
+    (the reference clips ink at the canvas, main.rs:96-106).
+    """
+
+    alphabet: str
+    templates: np.ndarray  # [G, P, crop_h, wbank] u8
+    colsq_cum: np.ndarray  # [G, P, wbank+1] i32
+    advances: np.ndarray  # [G] f32 — cursor advance per glyph
+    base: int  # template canvas x margin (covers negative left bearing)
+    ox: np.float32  # alphabet origin (main.rs:131-147)
+    oy: np.float32
+    crop_h: int
+
+
+def build_prop_bank(face: Face, alphabet: str, ropts: RenderOptions, crop_h: int) -> PropBank:
+    """Rasterize the G×64 phase bank for one crop height."""
+    P = PROP_PHASES
+    gids = [face.glyph_for_char(c) for c in alphabet]
+    ox, oy = alphabet_origin(face, alphabet, ropts)
+    advances = np.array([advance_px(face, g, ropts) for g in gids], dtype=np.float32)
+
+    # canvas extent: union of raster bounds over glyphs and phases, ±2 px of
+    # slack (actual ink can exceed the metrics-derived bounds by a pixel)
+    x0 = x1 = 0
+    for g in gids:
+        for p in range(P):
+            rb = face.raster_bounds(g, ropts.size, (p / P, float(oy)), ropts.hinting)
+            x0 = min(x0, rb.x0)
+            x1 = max(x1, rb.x1)
+    base = -x0 + 2
+    wbank = base + x1 + 2
+
+    G = len(gids)
+    templates = np.zeros((G, P, crop_h, wbank), dtype=np.uint8)
+    canvas = Canvas(wbank, crop_h)
+    for gi, g in enumerate(gids):
+        for p in range(P):
+            canvas.fill(0)
+            face.rasterize_glyph(canvas, g, ropts.size, (base + p / P, float(oy)), ropts.hinting)
+            templates[gi, p] = canvas.pixels
+
+    colsq = (templates.astype(np.int64) ** 2).sum(axis=2)  # [G, P, wbank]
+    colsq_cum = np.zeros((G, P, wbank + 1), dtype=np.int64)
+    np.cumsum(colsq, axis=2, out=colsq_cum[:, :, 1:])
+    assert colsq_cum.max() < 2**31
+    return PropBank(
+        alphabet=alphabet,
+        templates=templates,
+        colsq_cum=colsq_cum.astype(np.int32),
+        advances=advances,
+        base=base,
+        ox=ox,
+        oy=oy,
+        crop_h=crop_h,
+    )
+
+
+def prop_bank_from_arrays(
+    alphabet: str, templates, colsq_cum, advances, base, ox, oy, crop_h
+) -> PropBank:
+    """A PropBank from another package's fields as numpy (focr_tpu's PropBank
+    carries the same ones), with the port's dtypes."""
+    return PropBank(
+        alphabet=alphabet,
+        templates=np.ascontiguousarray(templates, dtype=np.uint8),
+        colsq_cum=np.ascontiguousarray(colsq_cum, dtype=np.int32),
+        advances=np.ascontiguousarray(advances, dtype=np.float32),
+        base=int(base),
+        ox=np.float32(ox),
+        oy=np.float32(oy),
+        crop_h=int(crop_h),
+    )
+
+
+FocrBank = GridBank | PropBank
+
+
+def grid_bank_settings(
+    font_path: str, alphabet: str, ropts: RenderOptions, crop_w: int, kind: str = "grid"
+) -> dict:
+    """Everything a focr bank depends on besides its crop height, as saved
     beside it: a loaded bank is used only under the settings it was rendered
-    with."""
-    return {
+    with. ``kind`` is "grid" (monospace, per-cell templates for one crop
+    width) or "prop" (64 phases per glyph, for any crop width)."""
+    settings = {
         "font": os.path.basename(font_path),
         "size": float(ropts.size),
         "kern_x": float(ropts.kern_x),
         "hinting": [bool(ropts.hinting.full), float(ropts.hinting.size)],
         "alphabet": alphabet,
-        "crop_w": int(crop_w),
+        "kind": kind,
     }
+    if kind == "grid":
+        settings["crop_w"] = int(crop_w)
+    elif kind != "prop":
+        raise ValueError(f"focr bank kind {kind!r}: expected 'grid' or 'prop'")
+    return settings
 
 
-def grid_bank_arrays(banks: list[GridBank], settings: dict) -> dict[str, np.ndarray]:
-    """The .npz fields of a saved grid bank set (see load_grid_bank): one
-    bank per crop height, all of one alphabet and crop width."""
+def grid_bank_arrays(banks: list[FocrBank], settings: dict) -> dict[str, np.ndarray]:
+    """The .npz fields of a saved focr bank set (see load_grid_bank): one bank
+    per crop height, all of the settings' kind and alphabet (and, for grid
+    banks, crop width)."""
+    kind = settings["kind"]
     out = {"grid_bank_settings": np.array(json.dumps(settings, sort_keys=True))}
     for bank in banks:
-        if bank.alphabet != settings["alphabet"] or bank.crop_w != settings["crop_w"]:
-            raise ValueError("grid bank set: every bank must match the settings")
+        if (
+            bank.alphabet != settings["alphabet"]
+            or isinstance(bank, PropBank) != (kind == "prop")
+            or (kind == "grid" and bank.crop_w != settings["crop_w"])
+        ):
+            raise ValueError("focr bank set: every bank must match the settings")
         h = bank.crop_h
-        out[f"grid_h{h}_templates"] = bank.templates
-        out[f"grid_h{h}_tsq"] = bank.tsq
-        out[f"grid_h{h}_wx0"] = bank.wx0
-        out[f"grid_h{h}_positions"] = bank.positions
+        if kind == "grid":
+            out[f"grid_h{h}_templates"] = bank.templates
+            out[f"grid_h{h}_tsq"] = bank.tsq
+            out[f"grid_h{h}_wx0"] = bank.wx0
+            out[f"grid_h{h}_positions"] = bank.positions
+        else:
+            out[f"prop_h{h}_templates"] = bank.templates
+            out[f"prop_h{h}_colsq_cum"] = bank.colsq_cum
+            out[f"prop_h{h}_advances"] = bank.advances
+            out[f"prop_h{h}_origin"] = np.array([bank.ox, bank.oy], dtype=np.float32)
+            out[f"prop_h{h}_base"] = np.array([bank.base], dtype=np.int32)
     return out
 
 
-def save_grid_bank(path: str, banks: list[GridBank], settings: dict) -> None:
+def save_grid_bank(path: str, banks: list[FocrBank], settings: dict) -> None:
     np.savez_compressed(path, **grid_bank_arrays(banks, settings))
 
 
-def load_grid_bank(path: str) -> tuple[dict[int, GridBank], dict]:
-    """({crop_h: GridBank}, the settings the banks were rendered with)."""
+def load_grid_bank(path: str) -> tuple[dict[int, FocrBank], dict]:
+    """({crop_h: GridBank or PropBank}, the settings the banks were rendered
+    with). A set saved without a kind is a grid set."""
     with np.load(path, allow_pickle=False) as z:
         settings = json.loads(str(z["grid_bank_settings"]))
+        settings.setdefault("kind", "grid")
+        prefix = "grid_h" if settings["kind"] == "grid" else "prop_h"
         heights = sorted(
-            int(k[len("grid_h") : -len("_templates")])
+            int(k[len(prefix) : -len("_templates")])
             for k in z.files
-            if k.startswith("grid_h") and k.endswith("_templates")
+            if k.startswith(prefix) and k.endswith("_templates")
         )
-        banks = {
-            h: GridBank(
-                alphabet=settings["alphabet"],
-                templates=z[f"grid_h{h}_templates"],
-                tsq=z[f"grid_h{h}_tsq"],
-                wx0=z[f"grid_h{h}_wx0"],
-                positions=z[f"grid_h{h}_positions"],
-                crop_w=settings["crop_w"],
-                crop_h=h,
-                monospace=True,
-            )
-            for h in heights
-        }
+        banks: dict[int, FocrBank] = {}
+        for h in heights:
+            if settings["kind"] == "grid":
+                banks[h] = GridBank(
+                    alphabet=settings["alphabet"],
+                    templates=z[f"grid_h{h}_templates"],
+                    tsq=z[f"grid_h{h}_tsq"],
+                    wx0=z[f"grid_h{h}_wx0"],
+                    positions=z[f"grid_h{h}_positions"],
+                    crop_w=settings["crop_w"],
+                    crop_h=h,
+                    monospace=True,
+                )
+            else:
+                ox, oy = z[f"prop_h{h}_origin"]
+                banks[h] = prop_bank_from_arrays(
+                    settings["alphabet"], z[f"prop_h{h}_templates"], z[f"prop_h{h}_colsq_cum"],
+                    z[f"prop_h{h}_advances"], z[f"prop_h{h}_base"][0], ox, oy, h,
+                )
     return banks, settings
 
 

@@ -12,9 +12,11 @@ one device step per batch and row group:
 
 Host-side assembly applies the row-loop semantics (white skip, bottom stop)
 and maps glyph ids back to characters. Monospace fonts take this path (the
-cursor grid is static); proportional alphabets are decoded by the NumPy
-oracle (oracle/focr_oracle.py) until the proportional decoder is ported.
-Batches are synchronous; focr_tpu's mesh sharding is not carried over.
+cursor grid is static); proportional fonts take the sequential device
+decoder (models/focr_prop.py, K5), with the NumPy oracle
+(oracle/focr_oracle.py) only for degenerate metrics (a non-positive advance),
+as in focr_tpu. Batches are synchronous; focr_tpu's mesh sharding is not
+carried over.
 """
 
 from __future__ import annotations
@@ -25,9 +27,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from focr_tpu_torch.fonts.bank import GridBank, build_grid_bank, is_monospace
+from focr_tpu_torch.fonts.bank import (
+    FocrBank, GridBank, PropBank, build_grid_bank, build_prop_bank, is_monospace,
+)
 from focr_tpu_torch.fonts.ft import Face
 from focr_tpu_torch.io.images import bucket_pages
+from focr_tpu_torch.models.focr_prop import PropDecoder
 from focr_tpu_torch.models.types import DecodedLine, DecodeOptions, RenderOptions
 from focr_tpu_torch.ops.ssd_kernels import ssd_argmin
 from focr_tpu_torch.oracle import focr_oracle
@@ -111,10 +116,11 @@ def make_grid_forward(bank: GridBank, ys: tuple[int, ...], x0: int, device):
 class GridDecoder:
     """Batched focr decoder for one (page shape, grid, font) configuration.
 
-    ``device`` is explicit ("cuda" runs K4, "cpu" its plain version).
-    ``banks``: a preloaded bank set {crop_h: GridBank} (fonts/bank.py::
-    load_grid_bank) for the alphabet; with it no glyph is rendered and
-    ``face`` may be None (a saved grid bank is monospace by construction)."""
+    ``device`` is explicit ("cuda" runs K4 or K5, "cpu" their plain
+    versions). ``banks``: a preloaded bank set {crop_h: GridBank or PropBank}
+    (fonts/bank.py::load_grid_bank) for the alphabet; with it no glyph is
+    rendered, ``face`` may be None, and the set's kind decides the path (a
+    saved grid bank is monospace by construction)."""
 
     def __init__(
         self,
@@ -124,7 +130,7 @@ class GridDecoder:
         ropts: RenderOptions,
         page_shape: tuple[int, int],
         device: str | torch.device,
-        banks: dict[int, GridBank] | None = None,
+        banks: dict[int, FocrBank] | None = None,
     ):
         if face is None and banks is None:
             raise ValueError("GridDecoder: needs a face or a preloaded bank set")
@@ -138,27 +144,46 @@ class GridDecoder:
         H, W = page_shape
         self.x0 = min(dopts.x_start, W)
         self.crop_w = max(min(dopts.width, W - self.x0), 0)
-        if banks is not None or not alphabet:
+        if not alphabet:
             self.monospace = True
+        elif banks is not None:
+            self.monospace = not any(isinstance(b, PropBank) for b in banks.values())
         else:
             self.monospace = is_monospace(face, alphabet, ropts)
         self._codes = np.array([ord(c) for c in alphabet], dtype=np.uint32)
         self._ascii = bool(alphabet) and max(map(ord, alphabet)) < 128
         self.groups: list[tuple[_RowGroup, StripForward]] = []
+        self.prop_groups: list[tuple[_RowGroup, PropDecoder]] = []
         self.banks: list[GridBank] = []
         if self.crop_w > 0 and self.monospace:
             for grp in _row_groups(dopts, H):
                 bank = self._bank(grp.crop_h)
                 self.banks.append(bank)
                 self.groups.append((grp, StripForward(bank, self.device)))
+        if self.crop_w > 0 and not self.monospace:
+            prop = [(grp, self._bank(grp.crop_h)) for grp in _row_groups(dopts, H)]
+            if all(float(b.advances.min()) > 0 for _, b in prop):
+                self.prop_groups = [
+                    (grp, PropDecoder(b, self.crop_w, self.device)) for grp, b in prop
+                ]
+            elif face is None:
+                # focr_tpu's route for a non-positive advance is the oracle,
+                # which renders every glyph
+                raise ValueError("a bank with a non-positive advance needs the font itself")
 
-    def _bank(self, crop_h: int) -> GridBank:
+    def _bank(self, crop_h: int) -> FocrBank:
         if self.bank_set is None:
-            return build_grid_bank(self.face, self.alphabet, self.ropts, self.crop_w, crop_h)
+            if self.monospace:
+                return build_grid_bank(self.face, self.alphabet, self.ropts, self.crop_w, crop_h)
+            return build_prop_bank(self.face, self.alphabet, self.ropts, crop_h)
         bank = self.bank_set.get(crop_h)
-        if bank is None or bank.crop_w != self.crop_w or bank.alphabet != self.alphabet:
+        if (
+            bank is None
+            or bank.alphabet != self.alphabet
+            or (isinstance(bank, GridBank) and bank.crop_w != self.crop_w)
+        ):
             raise ValueError(
-                f"grid bank set: no bank of alphabet {self.alphabet!r} for a "
+                f"focr bank set: no bank of alphabet {self.alphabet!r} for a "
                 f"{self.crop_w}x{crop_h} line crop (page {self.page_shape}); it holds "
                 f"crop heights {sorted(self.bank_set)}"
             )
@@ -177,11 +202,40 @@ class GridDecoder:
             # reference's row loop breaks immediately (main.rs:205-207)
             return [[] for _ in range(B)]
         if not self.monospace:
+            if self.prop_groups:
+                return self._decode_prop(pages)
             return [
                 focr_oracle.decode_image(p, self.face, self.alphabet, self.dopts, self.ropts)
                 for p in pages
             ]
         return self._finish(self._dispatch(pages))
+
+    def _decode_prop(self, pages: np.ndarray) -> list[list[DecodedLine]]:
+        """Proportional-font batch decode through K5, one launch per row
+        group (focr_tpu/models/focr.py:241-268). All-white strips are skipped
+        before the device: the row loop drops their text (main.rs:208-211)."""
+        B = pages.shape[0]
+        inv = np.subtract(255, pages, dtype=np.uint8)
+        per_row: dict[int, list[str | None]] = {}  # y -> text per page, None if white
+        for grp, dec in self.prop_groups:
+            ch = grp.crop_h
+            strips = np.stack(
+                [inv[:, y : y + ch, self.x0 : self.x0 + self.crop_w] for y in grp.ys], axis=1
+            ).reshape(-1, ch, self.crop_w)  # [B*R, ch, cw], page-major
+            inked = np.flatnonzero(strips.reshape(len(strips), -1).max(axis=1) > 0)
+            texts: list[str | None] = [None] * len(strips)
+            if len(inked):
+                for i, t in zip(inked, dec.decode_lines(strips[inked])):
+                    texts[i] = t
+            R = len(grp.ys)
+            for ri, y in enumerate(grp.ys):
+                per_row[y] = [texts[b * R + ri] for b in range(B)]
+        ys_sorted = sorted(per_row)
+        return [
+            [DecodedLine(text=per_row[y][b], y=int(y)) for y in ys_sorted
+             if per_row[y][b] is not None]
+            for b in range(B)
+        ]
 
     def _dispatch(self, pages: np.ndarray) -> list:
         """Crop every row group's strips into ONE flat host buffer (filled in
@@ -273,7 +327,7 @@ def decode_pages(
     ropts: RenderOptions,
     device: str | torch.device,
     batch_size: int = 16,
-    banks: dict[int, GridBank] | None = None,
+    banks: dict[int, FocrBank] | None = None,
 ) -> list[list[DecodedLine]]:
     """Decode a heterogeneous page list: bucket by shape, batch, reassemble.
 

@@ -323,7 +323,7 @@ class NccMatcher:
             for i in grp.needle_ids:
                 needle_s[i] = elapsed / max(len(grp.needle_ids), 1)
             if planes is None:
-                # window sums over these fit i32: n*255^2 < 2^24 (kernel-gated)
+                # window sums over these fit i32: n*255^2 < 2^31 (sweep_tier)
                 i32 = inv.astype(np.int32)
                 planes = (i32, i32 * i32)
             self._replay_group(grp, data, planes, thr_f64, per_needle, H, W, crop)

@@ -6,7 +6,8 @@ of the sources, the flags and the compiler, so a fresh checkout builds once
 and a source edit rebuilds. Each source compiles in its own nvcc process, all
 started together, and one more links the objects. Flags: sm_90a (Hopper), and
 --fmad=false with no fast-math, because the ncc sweep's f32 threshold test
-relies on every op rounding on its own (see csrc/ncc_sweep.cu).
+and the proportional decoder's f32 cursor rely on every op rounding on its
+own (see csrc/ncc_sweep.cu and csrc/focr_prop.cu).
 
 Run ``python -m focr_tpu_torch.native.build`` to build ahead of time and print
 the compiler's register and shared-memory report.
@@ -25,7 +26,7 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ncc_sweep.cu", "ncc_compact.cu", "focr_ssd.cu")
+SOURCES = ("ncc_sweep.cu", "ncc_compact.cu", "focr_ssd.cu", "focr_prop.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -102,12 +103,14 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.focr_ncc_sweep.argtypes = [p, i, i, i, p, i, i, i, p, p, f, f, p, p, p]
+    lib.focr_ncc_sweep.argtypes = [p, i, i, i, p, i, i, i, p, p, f, f, p, p, p, i, p, f, f, f]
     lib.focr_ncc_sweep.restype = i
     lib.focr_ncc_compact.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
     lib.focr_ncc_compact.restype = i
     lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, i, i, i, p, p, p]
     lib.focr_ssd_argmin.restype = i
+    lib.focr_prop_scan.argtypes = [p, i, i, i, p, p, p, i, i, i, f, i, p, p]
+    lib.focr_prop_scan.restype = i
     _lib = lib
     return lib
 

@@ -1,9 +1,9 @@
 """Device NCC ops in plain PyTorch: exact window statistics and the mask-row
 geometry shared by the sweep kernel, its plain version and the matcher.
 
-Counterpart of focr_tpu/ops/ncc.py. The XLA tier there (``correlate`` +
+Counterpart of focr_tpu/ops/ncc.py. Its XLA tier (``correlate`` +
 ``ncc_candidates``, the path for needles with n·65025 >= 2²⁴ or thr−ε <= 0)
-is not ported yet; see ROADMAP.md.
+is the sweep kernel's wide instance in the port (ops/ncc_kernels.py).
 """
 
 from __future__ import annotations

@@ -9,13 +9,19 @@ wrapper counts its kernel launches in ``LAUNCHES``.
 Semantics (pallas_ncc.py:12-20): the sweep's mask is an ε-superset of the
 reference's accept set over the search domain y >= 1, x >= 1; the matcher
 replays every candidate in exact f64 on the host, so results are bit-identical
-to the oracle. The test is division-free,
+to the oracle. The sweep has two tiers (``sweep_tier``), each an instance of
+the one kernel:
 
-    num > (thr−ε) · rtn · sqrt(max(norm2p − 8, 0)) − 48,
+  narrow — focr_tpu's Pallas test (pallas_ncc.py:205-220), division-free,
+           num > (thr−ε) · rtn · sqrt(max(norm2p − 8, 0)) − 48; it holds for
+           needles with n·65025 < 2²⁴ (every sum is f32-exact) and thr−ε > 0;
+  wide   — focr_tpu's XLA tier (ops/ncc.py::ncc_candidates :193-232) for
+           every other needle below focr_tpu's own bound n·65025 < 2³¹ (its
+           i32 correlate): f32 sums that may round, an exact int64 validity
+           test, den_lo or den_hi by the sign of thr−ε, and a slack that
+           covers the roundings.
 
-equivalent to sim > thr−ε only for thr−ε > 0, and exact-integer only for
-needles with n·65025 < 2²⁴ (``sweep_supported``). Other configurations need
-the XLA-tier port (ROADMAP.md); both versions raise NotImplementedError there.
+Past n·65025 >= 2³¹ both versions raise, as focr_tpu cannot run there.
 """
 
 from __future__ import annotations
@@ -34,35 +40,60 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def sweep_supported(nh: int, nw: int, threshold: float, eps: float = EPS) -> bool:
-    """pallas_ncc.pallas_supported (:1014-1023) minus its VMEM terms."""
-    return nh * nw * 65025 < 2**24 and np.float32(threshold) - np.float32(eps) > 0
-
-
-def _check_gate(nh: int, nw: int, threshold: float, eps: float) -> None:
-    if not sweep_supported(nh, nw, threshold, eps):
-        raise NotImplementedError(
-            f"ncc sweep: needle {nw}x{nh} at threshold {threshold} is outside the "
-            "kernel's gate (n*65025 < 2^24 and threshold - eps > 0); it needs the "
-            "XLA-tier port of focr_tpu/ops/ncc.py::ncc_candidates (ROADMAP.md)"
+def sweep_tier(n: int, threshold: float, eps: float = EPS) -> str:
+    """"narrow" (pallas_ncc.pallas_supported :1014-1023 minus its VMEM terms)
+    or "wide" (the XLA tier) for needles of n pixels; raises past focr_tpu's
+    own bound n·65025 < 2³¹."""
+    if n * 65025 >= 2**31:
+        raise ValueError(
+            f"ncc sweep: a needle of {n} pixels is past focr_tpu's bound n*65025 < 2^31 "
+            "(its int32 correlation)"
         )
+    if n * 65025 < 2**24 and np.float32(threshold) - np.float32(eps) > 0:
+        return "narrow"
+    return "wide"
 
 
 def sweep_terms(
     s_n: torch.Tensor, s2_n: torch.Tensor, n: int, threshold: float, eps: float = EPS
 ) -> tuple[torch.Tensor, torch.Tensor, float]:
-    """Per-needle f32 (Σn/n, √norm²) and thr−ε, as pallas_ncc.py:309-321
-    computes them: norm² from the EXACT int64 n·Σn² − (Σn)² (f32 could flip a
-    tiny positive variance to <= 0), then /n in f32; zero-variance needles get
-    rtn = +inf, which fails every compare. Computed on the CPU."""
+    """Per-needle f32 terms (sn_n, rtn) and thr−ε of the needles' tier,
+    computed on the CPU from the EXACT int64 norm² n·Σn² − (Σn)² (f32 could
+    flip a tiny positive variance to <= 0), then /n in f32:
+
+      narrow — as pallas_ncc.py:309-321: sn_n = Σn/n, rtn = √norm², +inf
+               for a zero-variance needle (it fails every compare);
+      wide   — as ncc_candidates :197-228: sn_n = f32(Σn), rtn = the
+               needle's factor of den_lo (thr−ε >= 0) or den_hi (below), NaN
+               for a zero-variance needle (it fails every compare)."""
     s_n = s_n.detach().to("cpu", torch.int64)
     s2_n = s2_n.detach().to("cpu", torch.int64)
     nf = torch.tensor(n, dtype=torch.float32)
-    sn_n = s_n.to(torch.float32) / nf
-    n2n = (n * s2_n - s_n * s_n).to(torch.float32) / nf
-    rtn = torch.where(n2n > 0, torch.sqrt(n2n), torch.tensor(float("inf")))
+    norm2 = n * s2_n - s_n * s_n
+    n2n = norm2.to(torch.float32) / nf
     thr_eps = float(np.float32(threshold) - np.float32(eps))
-    return sn_n, rtn, thr_eps
+    if sweep_tier(n, threshold, eps) == "narrow":
+        rtn = torch.where(n2n > 0, torch.sqrt(n2n), torch.tensor(float("inf")))
+        return s_n.to(torch.float32) / nf, rtn, thr_eps
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    if thr_eps >= 0:
+        rn = torch.sqrt(torch.maximum(n2n * f32(1.0 - 2.0**-22), f32(0.0)))
+    else:
+        rn = torch.sqrt(n2n * f32(1.0 + 2.0**-22))
+    return s_n.to(torch.float32), torch.where(norm2 > 0, rn, f32(float("nan"))), thr_eps
+
+
+def wide_scalars(n: int, thr_eps: float) -> tuple[float, float, float, float]:
+    """The wide test's f32 scalars (inv_n, ±err_p, the den factor, slack),
+    as ncc_candidates computes them (:193, :215-229)."""
+    lo = thr_eps >= 0
+    err = np.float32(8.0 * 2.0**-24 * n * 65025)
+    return (
+        float(np.float32(1.0) / np.float32(n)),
+        float(-err if lo else err),
+        float(np.float32(1.0 - 2.0**-21) if lo else np.float32(1.0 + 2.0**-21)),
+        float(np.float32(32.0 * 2.0**-24 * n * 65025 + 16.0)),
+    )
 
 
 def _sweep_shapes(imgs: torch.Tensor, needles: torch.Tensor) -> tuple[int, ...]:
@@ -108,10 +139,10 @@ def ncc_sweep_reference(
     (bit k of word g is window column x = 32g+k) and rcnt int32 [B, T, Hs].
 
     The correlation is unfold + float64 matmul (exact: integer products <=
-    65025, sums < 2²⁴), in row chunks so a full page fits in memory; never a
-    convolution. The f32 threshold test is pallas_ncc.py:205-220 op for op,
-    with three multiply-adds fused (one rounding each), as XLA compiles them
-    for focr_tpu's CPU reference (it always allows FMA fusion):
+    65025, sums < 2³¹), in row chunks so a full page fits in memory; never a
+    convolution. The narrow tier's f32 test is pallas_ncc.py:205-220 op for
+    op, with three multiply-adds fused (one rounding each), as XLA compiles
+    them for focr_tpu's CPU reference (it always allows FMA fusion):
 
         norm2p = fma(-(sp·sp), f32(1/n), s2p)
         num    = fma(-sn_n, sp, acc)
@@ -119,11 +150,12 @@ def ncc_sweep_reference(
 
     A fused op rounds once where the separate ops round twice, so it stays
     inside the −8 and −48 error bounds the test was derived with: the
-    candidate set is still a certified superset."""
+    candidate set is still a certified superset. The wide tier's test is
+    ncc_candidates :193-232 op for op, unfused (see csrc/ncc_sweep.cu)."""
     B, H, W, T, nh, nw = _sweep_shapes(imgs, needles)
-    _check_gate(nh, nw, threshold, eps)
     dev = imgs.device
     n = nh * nw
+    wide = sweep_tier(n, threshold, eps) == "wide"
     Hs, Wv = H - nh + 1, W - nw + 1
     NW = word_stride(W, nw)
     W1 = NW * 32
@@ -135,6 +167,9 @@ def ncc_sweep_reference(
     rtn = rtn.to(dev)[:, None, None]
     inv_n, thr, m8, m48 = f32(np.float32(1.0 / n)), f32(thr_eps), f32(8.0), f32(48.0)
     inf, zero = f32(float("inf")), f32(0.0)
+    if wide:
+        inv_n, err, c_den, slack = (f32(v) for v in wide_scalars(n, thr_eps))
+        nf = f32(float(n))
 
     sp, s2p = window_stats(imgs, nw, nh)  # int64 [B, Hs, Wv]
     nd = needles.reshape(T, n).to(torch.float64).T  # [n, T]
@@ -155,17 +190,55 @@ def ncc_sweep_reference(
             acc = acc.reshape(R, Wv, T).permute(2, 0, 1)  # [T, R, Wv]
             spf = sp[b, y0:y1].to(torch.float32)
             s2pf = s2p[b, y0:y1].to(torch.float32)
-            norm2p = _fma32(-(spf * spf), inv_n, s2pf)
-            num = _fma32(-sn_n, spf, acc)
             ys = torch.arange(y0, y1, device=dev)
-            row_ok = (spf > 0) & (norm2p > -m8) & (ys[:, None] >= 1) & (xs[None, :] >= 1)
-            q = torch.where(row_ok, torch.sqrt(torch.maximum(norm2p - m8, zero)), inf)
-            keep = num > _fma32(thr, rtn * q, -m48)  # [T, R, Wv]
+            in_domain = (ys[:, None] >= 1) & (xs[None, :] >= 1)
+            if wide:
+                norm2p = s2pf - (spf * spf) / nf
+                var = n * s2p[b, y0:y1] - sp[b, y0:y1] * sp[b, y0:y1]
+                row_ok = (sp[b, y0:y1] > 0) & (var > 0) & in_domain
+                num = acc - (sn_n * spf) * inv_n
+                den = (rtn * torch.sqrt(torch.maximum(norm2p + err, zero))) * c_den
+                keep = row_ok & (num > thr * den - slack)  # [T, R, Wv]
+            else:
+                norm2p = _fma32(-(spf * spf), inv_n, s2pf)
+                num = _fma32(-sn_n, spf, acc)
+                row_ok = (spf > 0) & (norm2p > -m8) & in_domain
+                q = torch.where(row_ok, torch.sqrt(torch.maximum(norm2p - m8, zero)), inf)
+                keep = num > _fma32(thr, rtn * q, -m48)  # [T, R, Wv]
             keep = torch.nn.functional.pad(keep, (0, W1 - Wv))
             words = (keep.reshape(T, R, NW, 32).to(torch.int64) * weights).sum(-1)
             mask[b, :, y0:y1] = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
             rcnt[b, :, y0:y1] = keep.sum(-1, dtype=torch.int32)
     return mask, rcnt
+
+
+# the kernel's block shape (csrc/ncc_sweep.cu): needle tile, window rows,
+# 32-column words; and the shared memory a block may use on the H100
+_TT, _TR, _XW = 8, 16, 8
+_SMEM_MAX = 232448 - 1024
+
+
+def _tile_fits(nh: int, nw: int) -> bool:
+    """Whether the kernel's shared memory holds the needle tile beside the
+    page band; the band alone must fit."""
+    nw4 = -(-nw // 4)
+    band = (_TR + nh - 1) * (_XW * 32 + 4 * nw4)
+    if band > _SMEM_MAX:
+        raise ValueError(f"ncc_sweep: a {nw}x{nh} needle's page band ({band} bytes) "
+                         "exceeds the kernel's shared memory")
+    return nh * nw4 * _TT * 4 + band <= _SMEM_MAX
+
+
+def _needle_words(needles: torch.Tensor) -> torch.Tensor:
+    """[T, nh, nw] u8 -> the kernel's needle-tile layout in device memory,
+    int32 [ceil(T/8), nh, ceil(nw/4), 8]: byte k of word (tile, dy, q, t) is
+    needle[8·tile + t][dy][4q + k], 0 past nw and T."""
+    T, nh, nw = needles.shape
+    nt, nw4 = -(-T // _TT), -(-nw // 4)
+    padded = torch.zeros((nt * _TT, nh, nw4 * 4), dtype=torch.uint8, device=needles.device)
+    padded[:T, :, :nw] = needles
+    tiles = padded.reshape(nt, _TT, nh, nw4, 4).permute(0, 2, 3, 1, 4).contiguous()
+    return tiles.view(torch.int32).reshape(nt, nh, nw4, _TT)
 
 
 def ncc_sweep(
@@ -178,18 +251,18 @@ def ncc_sweep(
     terms: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 (csrc/ncc_sweep.cu) for CUDA tensors, ncc_sweep_reference for CPU
-    tensors. ``terms``: precomputed sweep_terms (the matcher's device groups
-    carry them)."""
+    tensors; the needles' tier picks the kernel's instance. ``terms``:
+    precomputed sweep_terms (the matcher's device groups carry them)."""
     if imgs.device.type == "cpu":
         return ncc_sweep_reference(imgs, needles, s_n, s2_n, threshold, eps, terms)
     if imgs.device.type != "cuda":
         raise ValueError(f"ncc_sweep: unsupported device {imgs.device}")
     B, H, W, T, nh, nw = _sweep_shapes(imgs, needles)
-    _check_gate(nh, nw, threshold, eps)
+    n = nh * nw
+    wide = sweep_tier(n, threshold, eps) == "wide"
     for name, t, dt in (("imgs", imgs, torch.uint8), ("needles", needles, torch.uint8)):
         if t.dtype != dt or not t.is_contiguous() or t.device != imgs.device:
             raise ValueError(f"ncc_sweep: {name} must be contiguous {dt} on {imgs.device}")
-    n = nh * nw
     sn_n, rtn, thr_eps = terms if terms is not None else sweep_terms(
         s_n, s2_n, n, threshold, eps
     )
@@ -199,13 +272,18 @@ def ncc_sweep(
     NW = word_stride(W, nw)
     mask = torch.empty((B, T, Hs, NW), dtype=torch.int32, device=imgs.device)
     rcnt = torch.zeros((B, T, Hs), dtype=torch.int32, device=imgs.device)
+    inv_n, err, c_den, slack = (
+        wide_scalars(n, thr_eps) if wide else (float(np.float32(1.0 / n)), 0.0, 0.0, 0.0)
+    )
+    nd_words = _needle_words(needles) if wide and not _tile_fits(nh, nw) else None
     from focr_tpu_torch.native.build import load
 
     rc = load().focr_ncc_sweep(
         imgs.data_ptr(), B, H, W, needles.data_ptr(), T, nh, nw,
-        sn_n.data_ptr(), rtn.data_ptr(), thr_eps, float(np.float32(1.0 / n)),
+        sn_n.data_ptr(), rtn.data_ptr(), thr_eps, inv_n,
         mask.data_ptr(), rcnt.data_ptr(),
         torch.cuda.current_stream(imgs.device).cuda_stream,
+        int(wide), nd_words.data_ptr() if nd_words is not None else None, err, c_den, slack,
     )
     if rc != 0:
         raise RuntimeError(f"ncc_sweep kernel launch failed: CUDA error {rc}")

@@ -10,8 +10,9 @@ with every numeric quirk preserved:
   * f32 cursor arithmetic ``pos += advance/upem*size*kern_x`` (main.rs:176-178)
   * all-white row skip, zero-height stop, empty-text stop     (main.rs:205-215)
 
-The grid decoder (models/focr.py) is tested against it, and proportional
-alphabets are decoded by it.
+The grid and proportional decoders (models/focr.py, models/focr_prop.py) are
+tested against it; it decodes only an alphabet with a non-positive advance,
+which would never end the device scan, as in focr_tpu.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""K1, K2 and K4 on a CUDA card against their plain PyTorch versions, exactly.
+"""K1 (both tiers), K2, K4 and K5 on a CUDA card against their plain PyTorch
+versions, exactly.
 
 Marked ``cuda``: each test skips without a card. On a machine with one, run
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from focr_tpu_torch.ops import ncc_kernels, ssd_kernels
+from focr_tpu_torch.ops import ncc_kernels, prop_kernels, ssd_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +50,11 @@ CASES = {  # (B, H, W, T, nh, nw, threshold, seed, density)
     "wide-5x17": (1, 40, 70, 5, 5, 17, 0.4, 2, 0.3),
     "tall-16x15": (2, 50, 600, 9, 16, 15, 0.6, 3, 0.3),
     "page-13x9": (8, 792, 662, 222, 13, 9, 0.8, 4, 0.1),
+    # the wide tier: n·65025 >= 2²⁴, thr−ε <= 0, needle words in device memory
+    "t20-21x13": (4, 300, 662, 74, 21, 13, 0.8, 5, 0.2),
+    "thr0-13x9": (2, 80, 120, 9, 13, 9, 0.0, 6, 0.3),
+    "neg-17x12": (1, 70, 90, 5, 17, 12, -0.4, 7, 0.3),
+    "huge-150x150": (1, 330, 300, 3, 150, 150, 0.7, 8, 0.2),
 }
 
 
@@ -128,3 +134,57 @@ def test_ssd_argmin_matches_plain_version(cuda, case):
     ids_r, white_r = ssd_kernels.ssd_argmin_reference(*args)
     assert torch.equal(ids, ids_r) and torch.equal(white, white_r)
     assert not bool(white.all()) and (case == "corpus" or bool(white[0, 0]))
+
+
+PROP_FIXTURE = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "fixtures", "torch_prop_golden.npz"
+)
+
+
+def _prop_inputs(case, seed):
+    """(strips, templates, colsq_cum, advances, base, ox, n_steps) for K5 as
+    numpy arrays and numbers, from the prop golden's bank."""
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+    from focr_tpu_torch.models.focr import crop_strips
+    from focr_tpu_torch.models.focr_prop import max_steps
+
+    banks, _ = load_grid_bank(PROP_FIXTURE)
+    rng = np.random.default_rng(seed)
+    h = 3 if case == "corpus-h3" else 12
+    bank = banks[h]
+    templates, colsq, adv = bank.templates, bank.colsq_cum, bank.advances
+    if case.startswith("corpus"):
+        with np.load(PROP_FIXTURE, allow_pickle=False) as z:
+            pages = z["pages"]
+        ys = (789,) if h == 3 else tuple(39 + 15 * i for i in range(50))
+        strips = 255 - crop_strips(pages, ys, h, 45, 608).reshape(-1, h, 608)
+        if h == 3:  # the corpus' bottom row is white: give it ink
+            strips = rng.integers(0, 256, strips.shape).astype(np.uint8)
+    elif case == "noise":
+        strips = rng.integers(0, 256, (40, 12, 608)).astype(np.uint8)
+    elif case == "dup-glyphs":
+        order = np.r_[np.arange(67), [3, 17, 40]]
+        templates, colsq, adv = templates[order], colsq[order], adv[order]
+        strips = rng.integers(0, 256, (9, 12, 300)).astype(np.uint8)
+        strips[:3] = 0
+    else:  # narrow: windows hang past the strip's edge
+        strips = rng.integers(0, 256, (6, 12, 20)).astype(np.uint8)
+    crop_w = strips.shape[2]
+    n_steps = max_steps(bank, crop_w)
+    return (np.ascontiguousarray(strips), templates, colsq, adv, bank.base, float(bank.ox),
+            n_steps)
+
+
+@pytest.mark.parametrize("case", ["corpus-h12", "corpus-h3", "noise", "dup-glyphs", "narrow"])
+def test_prop_scan_matches_plain_version(cuda, case):
+    *arrays, base, ox, n_steps = _prop_inputs(case, seed=len(case))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays]
+    prop_kernels.reset_launches()
+    ids = prop_kernels.prop_scan(*args, base, ox, n_steps)
+    torch.cuda.synchronize()
+    assert prop_kernels.LAUNCHES == {"prop_scan": 1}
+    ids_r = prop_kernels.prop_scan_reference(*args, base, ox, n_steps)
+    assert torch.equal(ids, ids_r)
+    assert bool((ids != prop_kernels.END_ID).any(dim=1).all())
+    if case == "dup-glyphs":
+        assert not bool((ids >= 67).logical_and(ids != prop_kernels.END_ID).any())

@@ -1,7 +1,8 @@
 """focr_tpu_torch's GridDecoder (device="cpu": K4's plain PyTorch version)
 against focr_tpu's GridDecoder and the NumPy oracle, on the CPU, exactly:
 equal (text, y) lines on the cases of tests/test_focr_engine.py, the
-streamed single-page path, proportional routing and the golden pages."""
+streamed single-page path, the proportional device path and the golden
+pages."""
 
 import json
 import os
@@ -181,9 +182,10 @@ def test_make_grid_forward_matches_focr_tpu(faces):
         assert np.array_equal(white.numpy(), np.asarray(want[1]))
 
 
-def test_proportional_alphabet_routes_to_oracle(sans_font_path):
-    """A DejaVu Sans alphabet is not monospace: the port decodes it with the
-    oracle, focr_tpu with its proportional device decoder; the lines agree."""
+def test_proportional_alphabet_takes_device_path(sans_font_path):
+    """A DejaVu Sans alphabet is not monospace: the port decodes it with its
+    proportional device decoder (K5's plain version here), as focr_tpu does;
+    the lines agree, by batch and streamed."""
     alpha = "AWijm01.:| "
     jf, tf = Face(sans_font_path), TFace(sans_font_path)
     d = dict(x_start=4, y_start=5, line_height=16, line_advance=19, width=150)
@@ -198,11 +200,14 @@ def test_proportional_alphabet_routes_to_oracle(sans_font_path):
     assert jdec.prop_groups, "focr_tpu should take its proportional device path"
     tdec = tfocr.GridDecoder(tf, alpha, td, tr, pages.shape[1:], "cpu")
     assert not tdec.monospace and not tdec.groups
+    assert [(g.crop_h, g.ys) for g, _ in tdec.prop_groups] == [
+        (g.crop_h, g.ys) for g, _ in jdec.prop_groups]
     ssd_kernels.reset_launches()
     got = tdec.decode_batch(pages)
     assert key(got) == key(jdec.decode_batch(pages))
     assert all(len(p) == 3 for p in got)
     assert key([list(tfocr.decode_single_stream(tdec, pages[0]))]) == key(got[:1])
+    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0}
 
 
 def test_saved_bank_set_decodes_without_a_face():

@@ -178,14 +178,37 @@ def test_sweep_terms_match_pallas_derivation():
 )
 @pytest.mark.parametrize("nh,nw,thr", [(17, 16, 0.8), (13, 9, 0.0), (13, 9, -0.5)])
 def test_sweep_gate_raises(fn, nh, nw, thr):
-    """Outside n·65025 < 2²⁴ and thr−ε > 0 the sweep raises (the XLA tier's
-    port is a ROADMAP item); it never silently narrows the candidate set."""
-    imgs = torch.zeros((1, 40, 40), dtype=torch.uint8)
-    needles = torch.ones((2, nh, nw), dtype=torch.uint8)
-    s = torch.full((2,), nh * nw, dtype=torch.int64)
-    assert not ncc_kernels.sweep_supported(nh, nw, thr)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(imgs, needles, s, s, thr)
+    """Outside n·65025 < 2²⁴ and thr−ε > 0 the sweep takes its wide tier
+    (focr_tpu's XLA-tier test), whose candidates hold every window the exact
+    f64 similarity accepts; it raises only past focr_tpu's own bound
+    n·65025 < 2³¹."""
+    from focr_tpu_torch.models.ncc import exact_similarities
+
+    rng = np.random.default_rng(nh * nw)
+    imgs = rng.integers(0, 256, (1, 40, 44), dtype=np.uint8)
+    needles = rng.integers(0, 256, (2, nh, nw), dtype=np.uint8)
+    imgs[0, 5 : 5 + nh, 7 : 7 + nw] = needles[0]
+    imgs[0, 20 : 20 + nh, 25 : 25 + nw] = needles[1]
+    T, n = 2, nh * nw
+    s_n = needles.reshape(T, -1).astype(np.int64).sum(1)
+    s2_n = (needles.reshape(T, -1).astype(np.int64) ** 2).sum(1)
+    assert ncc_kernels.sweep_tier(n, thr) == "wide"
+    mask, rcnt = fn(*(torch.from_numpy(a) for a in (imgs, needles, s_n, s2_n)), thr)
+    Hs, Wv = 40 - nh + 1, 44 - nw + 1
+    cand = _bits(mask.numpy(), 32)[0, :, :, :Wv]  # [T, Hs, Wv]
+    assert rcnt.numpy().sum() == cand.sum()
+    wins = np.lib.stride_tricks.sliding_window_view(imgs[0].astype(np.int64), (nh, nw))
+    sp, s2p = wins.sum(axis=(2, 3)), (wins**2).sum(axis=(2, 3))
+    for t in range(T):
+        acc = (wins * needles[t].astype(np.int64)).sum(axis=(2, 3))
+        sim = exact_similarities(acc, sp, s2p, int(s_n[t]), int(s2_n[t]), n)
+        accept = (sim != np.inf) & (sim > np.float64(np.float32(thr)))
+        accept[0, :] = accept[:, 0] = False  # the search domain is y, x >= 1
+        assert accept.any() and not (accept & ~cand[t]).any()
+    big = torch.ones((1, 182, 182), dtype=torch.uint8)  # 33124·65025 >= 2³¹
+    s = torch.full((1,), 182 * 182, dtype=torch.int64)
+    with pytest.raises(ValueError, match="2\\^31"):
+        fn(torch.zeros((1, 200, 200), dtype=torch.uint8), big, s, s, thr)
 
 
 def test_cpu_wrappers_count_no_launches():
