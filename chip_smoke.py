@@ -22,7 +22,8 @@ needed:
 Phases, each of which raises on failure:
 
   1. device  — the card's name and power limit; CUDA must be available
-  2. build   — nvcc builds csrc/ into focr_tpu_torch/_build/
+  2. build   — nvcc builds csrc/*.cu and g++ builds csrc/ncc_host.cpp (the
+               ncc host library) into focr_tpu_torch/_build/
   3. kernels — on the first 8-page wave, inverted and ink-cropped as the
                matcher does: K1 (ncc_sweep) and K2 (compact_hits) against
                their plain PyTorch versions on the card, exact (tolerance 0),
@@ -30,9 +31,11 @@ Phases, each of which raises on failure:
   4. golden  — NccMatcher on the card decodes the fixture's two golden pages
                to focr_tpu's lines, through both kernels
   5. cli     — the ncc CLI on 16 pages: once in-process, with the launch
-               counts reset just before and read just after (the counted main
-               path), once as `python -m focr_tpu_torch.cli.ncc` (exit 0, same
-               stdout); every page's lines are checked against its text
+               counts and the host library's call counts reset just before and
+               read just after (the counted main path: K1, K2, the native
+               replay and the native post-processing scan), once as
+               `python -m focr_tpu_torch.cli.ncc` (exit 0, same stdout); every
+               page's lines are checked against its text
   6. focr-kernels — K4 (ssd_argmin) against its plain PyTorch version on the
                card, exact (tolerance 0 on ids and white), on a 16-page wave of
                the corpus cropped as GridDecoder crops it (both row groups),
@@ -66,9 +69,18 @@ Phases, each of which raises on failure:
                stdout, equal to focr_tpu's lines (the prop corpus' acceptance
                rule, bench.py:209-216: a greedy proportional decode derails on
                look-alike glyphs on every engine, so the text is not compared)
+ 12. host-native — the ncc host library (host C++, not a device kernel): its
+               build (compiler, seconds, OpenMP threads); on phase 3's wave
+               the native replay against the NumPy plain replay, bit for bit
+               (coordinates, f32 similarity bytes, counts, warn flags), and
+               the native post-processing scan against its NumPy version
+               (same winners), each timed per page; the matcher's 4-thread
+               collect pool against serial collection on the 16 pages; the
+               CLI with --engine native on the two golden pages, whose lines
+               must equal focr_tpu's
 
-Then one JSON line of the kernels, the card line, and last
-{"ok": true, "device": {...}}.
+Then one JSON line of the kernels (with the host tier's numbers under
+"host_native"), the card line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -269,6 +281,7 @@ def wide_sweep_checks(dev) -> tuple[int, float, float]:
 
     from focr_tpu_torch.models import ncc as ncc_model
     from focr_tpu_torch.ops import ncc_kernels as K
+    from focr_tpu_torch.oracle.ncc_direct import direct_search
 
     def planted(B, H, W, T, seed):
         rng = np.random.default_rng(seed)
@@ -298,24 +311,17 @@ def wide_sweep_checks(dev) -> tuple[int, float, float]:
         e, _, dg, mask, rcnt = run(imgs, needles, thr)
         pos, off, hcnt, _ = (t.cpu().numpy() for t in K.compact_hits(mask, rcnt))
         W1 = mask.shape[-1] * 32
-        thr64 = np.float64(np.float32(thr))
         n_hits = 0
         for b in range(len(imgs)):
-            wins = np.lib.stride_tricks.sliding_window_view(imgs[b].astype(np.int64), (21, 13))
-            sp, s2p = wins.sum(axis=(2, 3)), (wins * wins).sum(axis=(2, 3))
-            acc = np.einsum("yxij,tij->tyx", wins, needles.astype(np.int64))
             ends = np.cumsum(hcnt[b].astype(np.int64)) + off[b]
             for t in range(len(needles)):
-                sim = ncc_model.exact_similarities(
-                    acc[t], sp, s2p, int(dg.s_n[t]), int(dg.s2_n[t]), 21 * 13)
-                ok = (sim != np.inf) & (sim > thr64)
-                ok[0, :] = ok[:, 0] = False
-                want = set(zip(*np.nonzero(ok)))  # (y, x) the exact search accepts
+                # the direct search takes the page as printed (not inverted)
+                want = {(m.y, m.x) for m in direct_search(255 - imgs[b], needles[t], thr,
+                                                          cap=imgs[b].size)}
                 cand = pos[ends[t] - hcnt[b, t] : ends[t]].astype(np.int64)
-                ys, xs = cand // W1, cand % W1
-                got = {(y, x) for y, x in zip(ys.tolist(), xs.tolist()) if ok[y, x]}
-                if got != want:
-                    raise AssertionError(f"K1 wide: replayed hits differ (thr {thr}, page {b})")
+                if not want <= set(zip((cand // W1).tolist(), (cand % W1).tolist())):
+                    raise AssertionError(f"K1 wide: candidates miss exact hits (thr {thr}, "
+                                         f"page {b})")
                 n_hits += len(want)
         log(f"[prop-kernels] K1 wide instance, 21x13 needles, thr {thr}: vs plain max|err| {e}; "
             f"{int(rcnt.sum())} candidates hold all {n_hits} exact hits")
@@ -452,6 +458,125 @@ def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
     return entry, wide, B / wall, B / sub_wall
 
 
+def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
+    """Phase 12: the ncc host library (csrc/ncc_host.cpp, built in phase 2)
+    on the card's host. Returns its numbers for the JSON line."""
+    import numpy as np
+
+    from focr_tpu_torch.cli.ncc import main as ncc_main
+    from focr_tpu_torch.io.images import save_gray
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.models import post as post_model
+    from focr_tpu_torch.native import ncc_cpu
+
+    def median_s(fn, reps: int) -> float:
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return sorted(ts)[len(ts) // 2]
+
+    def valid(out, starts):
+        """Each needle's hits: (x, y, f32 sim bits) at its offset, counts, warn."""
+        x, y, sim, counts, warn = out
+        idx = np.concatenate([np.arange(s, s + k) for s, k in zip(starts, counts)] or
+                             [np.zeros(0, np.int64)]).astype(np.int64)
+        return x[idx], y[idx], sim[idx].view(np.uint32), counts, warn
+
+    log(f"[host-native] host library: {host_build['compiler']}, built and loaded in "
+        f"{host_build['host_build_s']:.1f} s; OpenMP threads {host_build['omp_threads']}")
+    # the replay on phase 3's wave: native against the NumPy plain version
+    wave = matcher._sweep_wave(list(pages[: ncc_model.WAVE]))
+    B = len(wave)
+    thr = np.float64(np.float32(matcher.threshold))
+    groups = [ncc_model.replay_inputs(grp, data, inv, crop, thr)
+              for _, inv, plan, _, crop in wave for grp, kind, data in plan if kind == "sweep"]
+    n_cand = n_hits = 0
+    for args in groups:
+        a = valid(ncc_cpu.replay_group(*args), args[2])
+        b = valid(ncc_model.replay_group_reference(*args), args[2])
+        if not all(np.array_equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError("native replay differs from the NumPy plain replay")
+        n_cand += len(args[1])
+        n_hits += int(a[3].sum())
+    replay_ms = median_s(lambda: [ncc_cpu.replay_group(*g) for g in groups], 7) * 1e3 / B
+    replay_plain_ms = median_s(
+        lambda: [ncc_model.replay_group_reference(*g) for g in groups], 3) * 1e3 / B
+    log(f"[host-native] replay on the {B}-page wave: {n_cand} candidates, {n_hits} hits, "
+        f"native identical to plain (coordinates, f32 sim bits, counts, warn); ms/page "
+        f"native {replay_ms:.3f} (plain {replay_plain_ms:.3f})")
+
+    # post-processing: the native sort + scan against the NumPy argsort + scan
+    structs = [matcher._collect_page(d, False, False, None, True) for d in wave]
+    for hs in structs:
+        a = post_model._winner_arrays(hs, 0.95, 5)
+        b = post_model.winner_arrays_reference(hs, 0.95, 5)
+        if not all(np.array_equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError("native post-processing scan differs from the NumPy one")
+    post_ms = median_s(lambda: [post_model._winner_arrays(h, 0.95, 5) for h in structs],
+                       7) * 1e3 / B
+    post_plain_ms = median_s(
+        lambda: [post_model.winner_arrays_reference(h, 0.95, 5) for h in structs], 3) * 1e3 / B
+    text_ms = median_s(lambda: [post_model.process_hits_text(h, 0.95, 5) for h in structs],
+                       7) * 1e3 / B
+    log(f"[host-native] post-processing, {sum(map(len, structs)) // B} hits/page: the same "
+        f"winners; ms/page sort + scan native {post_ms:.3f} (plain {post_plain_ms:.3f}), "
+        f"process_hits_text {text_ms:.3f}")
+
+    # the collect pool (get_hits_many) against serial collection, in turns
+    post = lambda hs: post_model.process_hits_text(hs, 0.95, 5)  # noqa: E731
+    plist = list(pages)
+
+    def serial():
+        out = []
+        for s in range(0, len(plist), ncc_model.WAVE):
+            for d in matcher._sweep_wave(plist[s : s + ncc_model.WAVE]):
+                out.append(post(matcher._collect_page(d, False, False, None, True)))
+        return out
+
+    want = serial()
+    times = {"pool": [], "serial": []}
+    for name in ("pool", "serial", "serial", "pool", "pool", "serial"):
+        t0 = time.perf_counter()
+        got = (matcher.get_hits_many(plist, struct=True, post=post) if name == "pool"
+               else serial())
+        times[name].append(time.perf_counter() - t0)
+        if got != want:
+            raise AssertionError(f"{name} collection changed the lines")
+    pool_s, serial_s = min(times["pool"]), min(times["serial"])
+    log(f"[host-native] {len(plist)} pages, matcher + post: 4-thread collect pool "
+        f"{[round(t, 4) for t in times['pool']]} s, serial {[round(t, 4) for t in times['serial']]}"
+        f" s (best {len(plist) / pool_s:.1f} against {len(plist) / serial_s:.1f} pages/s)")
+
+    # --engine native on the two golden pages
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for k, p in enumerate(pages[: len(golden)]):
+            paths.append(os.path.join(tmp, f"page{k:02d}.pgm"))
+            save_gray(paths[-1], p)
+        argv = ["-i", *paths, "-f", FONT, "-t", "13", "--x-bits", "2", "--needle-bank", FIXTURE,
+                "--engine", "native"]
+        buf = io.StringIO()
+        ncc_cpu.reset_native_calls()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = ncc_main(argv)
+        native_s = (time.perf_counter() - t0) / len(golden)
+    calls = ncc_cpu.NATIVE_CALLS["search_many"]
+    if rc != 0 or buf.getvalue().splitlines() != [ln for page in golden for ln in page]:
+        raise AssertionError(f"--engine native: rc {rc}, lines differ from focr_tpu's")
+    if not calls:
+        raise AssertionError("--engine native did not call the host search")
+    log(f"[host-native] --engine native on the {len(golden)} golden pages: lines identical to "
+        f"focr_tpu's; {native_s:.3f} s/page, {calls} search_many calls")
+    return {"replay_ms_per_page": replay_ms, "replay_plain_ms_per_page": replay_plain_ms,
+            "post_ms_per_page": post_ms, "post_plain_ms_per_page": post_plain_ms,
+            "post_text_ms_per_page": text_ms, "collect_pool_s": times["pool"],
+            "collect_serial_s": times["serial"], "engine_native_s_per_page": native_s,
+            "candidates_per_page": n_cand / B}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -471,12 +596,24 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"[build] nvcc + load {time.perf_counter() - t0:.1f} s: {build.build()}")
+    t0 = time.perf_counter()
+    build.load_host()
+    host_build = {
+        "host_build_s": time.perf_counter() - t0,
+        "compiler": subprocess.run([build.HOST_CXX, "--version"], capture_output=True,
+                                   text=True, check=True).stdout.splitlines()[0],
+        # libgomp's team size: OMP_NUM_THREADS, else every CPU the process may use
+        "omp_threads": int(os.environ.get("OMP_NUM_THREADS") or len(os.sched_getaffinity(0))),
+    }
+    log(f"[build] {host_build['compiler']}, {' '.join(build.HOST_FLAGS)}, + load "
+        f"{host_build['host_build_s']:.1f} s: {build.host_library_path()}")
 
     from focr_tpu_torch.fonts.bank import load_needle_bank
     from focr_tpu_torch.io.images import save_gray
     from focr_tpu_torch.models import ncc as ncc_model
     from focr_tpu_torch.models.post import line_matches_truth, process_hits_text
     from focr_tpu_torch.models.types import NCC_DEFAULT_ALPHABET, RenderOptions
+    from focr_tpu_torch.native import ncc_cpu
     from focr_tpu_torch.ops import ncc_kernels as K
 
     dev = torch.device("cuda")
@@ -577,13 +714,16 @@ def main() -> int:
 
         buf = io.StringIO()
         K.reset_launches()
+        ncc_cpu.reset_native_calls()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = ncc_main(argv)
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
-        if rc != 0 or not all(launches.values()):
-            raise AssertionError(f"in-process CLI: rc {rc}, launches {launches}")
+        native_calls = {k: ncc_cpu.NATIVE_CALLS[k] for k in ("replay_group", "post_sort_winners")}
+        if rc != 0 or not all(launches.values()) or not all(native_calls.values()):
+            raise AssertionError(f"in-process CLI: rc {rc}, launches {launches}, host library "
+                                 f"calls {native_calls}")
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-m", "focr_tpu_torch.cli.ncc", *argv],
@@ -613,7 +753,7 @@ def main() -> int:
     log(f"[cli] exit 0; {len(pages)} pages, {len(out_lines)} lines (golden pages identical to "
         f"focr_tpu's, every page's text decoded); in-process {len(pages) / wall:.2f} pages/s "
         f"({wall:.2f} s), subprocess {len(pages) / sub_wall:.2f} pages/s ({sub_wall:.2f} s "
-        f"incl. start-up); launches {launches}; card {card}")
+        f"incl. start-up); launches {launches}; host library calls {native_calls}; card {card}")
 
     kernels = [
         {"name": "ncc_sweep", "route": "cuda", "source": "focr_tpu_torch/csrc/ncc_sweep.cu",
@@ -635,7 +775,11 @@ def main() -> int:
     kernels[0].update(wide)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], wide["wide_max_abs_err"])
     kernels.append(k5)
-    print(json.dumps({"kernels": kernels, "cli_pages_per_s": len(pages) / wall,
+    # 12. the ncc host library
+    host_native = host_native_phase(matcher, pages, golden, host_build)
+    host_native.update(host_build, ncc_cli_pages_per_s=len(pages) / wall)
+    print(json.dumps({"kernels": kernels, "host_native": host_native,
+                      "cli_pages_per_s": len(pages) / wall,
                       "cli_subprocess_pages_per_s": len(pages) / sub_wall,
                       "focr_cli_pages_per_s": focr_pps,
                       "focr_cli_subprocess_pages_per_s": focr_sub_pps,

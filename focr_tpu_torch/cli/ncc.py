@@ -3,7 +3,8 @@
 
 stdout: decoded text lines (or --csv rows, or --raw hit dumps); stderr: all
 diagnostics. --rust routes to the host differential oracle, exactly like the
-reference's flag switches between the C and Rust kernels.
+reference's flag switches between the C and Rust kernels; --engine native runs
+the C++ host search (native/ncc_cpu.py).
 """
 
 from __future__ import annotations
@@ -39,12 +40,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-letters", action="store_true")
     p.add_argument("--rust", action="store_true",
                    help="use the host differential-oracle kernel instead of the device path")
-    p.add_argument("--engine", choices=["device", "oracle"], default=None,
-                   help="execution tier: device (default) or oracle (NumPy "
-                        "reference). --rust is an alias for oracle.")
+    p.add_argument("--engine", choices=["device", "native", "oracle"], default=None,
+                   help="execution tier: device (CUDA card, default), native (C++ "
+                        "host), oracle (NumPy reference). --rust is an alias for "
+                        "oracle.")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the device engine: cuda (the CUDA kernels; "
-                        "default) or cpu (their plain PyTorch versions)")
+                        "default) or cpu (their plain PyTorch versions); the "
+                        "native and oracle engines run on the host")
     p.add_argument("--needle-bank", default=None, metavar="NPZ",
                    help="load the needles from a saved bank "
                         "(fonts/bank.py::save_needle_bank) instead of rendering "
@@ -133,7 +136,11 @@ def main(argv: list[str] | None = None) -> int:
             # (ncc.rs:645 -> ncc.rs:917-923) copies pixels without inverting
             save_gray(f"letters/{nd.letter}-{x}_{y}.png", nd.pixels)
 
-    get = matcher.get_hits if engine == "device" else matcher.get_hits_oracle
+    get = {
+        "device": matcher.get_hits,
+        "native": matcher.get_hits_native,
+        "oracle": matcher.get_hits_oracle,
+    }[engine]
     if args.raw:
         assert len(args.img) == 1
         get(load_gray(args.img[0]), verbose=args.verbose, raw=True, out=sys.stdout)

@@ -23,6 +23,7 @@ from typing import Callable, Sequence, TypeVar
 import numpy as np
 
 from focr_tpu_torch.models.types import MatchWithLetter
+from focr_tpu_torch.native import ncc_cpu
 
 T = TypeVar("T")
 
@@ -106,9 +107,14 @@ def process_hits(
 def _run_winners(lkey: np.ndarray, lsim: np.ndarray, ov: int, N: int) -> np.ndarray:
     """Winner index per overlap run over the composite-key-sorted hits:
     partition_by's run-anchored split + last-max-wins selection
-    (ncc.rs:753-766, 1036-1052), vectorized in NumPy (the reference
-    package's native C scan gives identical output, pinned by
-    tests/test_post.py)."""
+    (ncc.rs:753-766, 1036-1052), in one pass of the host library
+    (native/ncc_cpu.py::post_winners; run_winners_reference is its plain
+    version)."""
+    return ncc_cpu.post_winners(lkey, lsim, ov)
+
+
+def run_winners_reference(lkey: np.ndarray, lsim: np.ndarray, ov: int, N: int) -> np.ndarray:
+    """The plain NumPy version of _run_winners."""
     # run partition anchored at each run's FIRST element (partition_by
     # semantics): jump pointers nxt[i] = end of a run starting at i, in one
     # vectorized searchsorted over the composite key. A run always contains
@@ -138,13 +144,10 @@ def _run_winners(lkey: np.ndarray, lsim: np.ndarray, ov: int, N: int) -> np.ndar
     )
 
 
-def _winner_arrays(hs, anchor_threshold: float, overlap: int):
-    """Shared vectorized core of process_hits on HitStruct arrays: anchor
-    filter, stable y/x sorts, run-anchored overlap partition, last-max dedup.
-
-    Returns None when no hits survive, else winner arrays
-    ``(wnid, wx, wy, wsim, line_bounds)`` in final output order, where
-    ``line_bounds`` are the split points between text lines."""
+def _keyed_hits(hs, anchor_threshold: float, overlap: int):
+    """The anchor filter and the composite sort key shared by _winner_arrays
+    and its plain version: None when no hits survive, else (y, x, sim, nid,
+    key, ov) of the surviving hits in engine order."""
     anchor_f32 = np.float32(anchor_threshold)
     y = hs.y
     if len(y) == 0:
@@ -161,13 +164,12 @@ def _winner_arrays(hs, anchor_threshold: float, overlap: int):
     x = hs.x[keep]
     sim = hs.sim[keep]
     nid = hs.needle_id[keep]
-    N = len(y)
 
-    # ONE stable radix sort on the composite (y, x) key — lexicographic plus
+    # ONE stable sort on the composite (y, x) key — lexicographic plus
     # stability is exactly "stable sort by y, then stable per-line sort by x"
     # (the reference's two sort_by_key passes, ncc.rs:741, 753). The x field
     # is wide enough that x + overlap can never carry into the y field, so
-    # the same key drives the overlap-run partition below without runs ever
+    # the same key drives the overlap-run partition without runs ever
     # crossing a line boundary.
     xmax = int(x.max())
     # any overlap beyond the page's x span behaves identically (every |Δx|
@@ -176,7 +178,36 @@ def _winner_arrays(hs, anchor_threshold: float, overlap: int):
     ov = min(int(overlap), xmax + 1)
     xbits = max(17, (xmax + max(ov, 0) + 2).bit_length())
     key = (y.astype(np.int64) << xbits) + x.astype(np.int64)
+    return y, x, sim, nid, key, ov
 
+
+def _winner_arrays(hs, anchor_threshold: float, overlap: int):
+    """Shared core of process_hits on HitStruct arrays: anchor filter,
+    stable y/x sorts, run-anchored overlap partition, last-max dedup — the
+    sort and the scan in one call of the host library
+    (native/ncc_cpu.py::post_sort_winners, as focr_tpu/models/post.py:187-199
+    calls it; winner_arrays_reference is its plain version).
+
+    Returns None when no hits survive, else winner arrays
+    ``(wnid, wx, wy, wsim, line_bounds)`` in final output order, where
+    ``line_bounds`` are the split points between text lines."""
+    k = _keyed_hits(hs, anchor_threshold, overlap)
+    if k is None:
+        return None
+    y, x, sim, nid, key, ov = k
+    widx = ncc_cpu.post_sort_winners(key, sim, ov)
+    wy = y[widx]
+    return nid[widx], x[widx], wy, sim[widx], np.flatnonzero(np.diff(wy)) + 1
+
+
+def winner_arrays_reference(hs, anchor_threshold: float, overlap: int):
+    """The plain NumPy version of _winner_arrays: a stable comparison
+    argsort, then run_winners_reference."""
+    k = _keyed_hits(hs, anchor_threshold, overlap)
+    if k is None:
+        return None
+    y, x, sim, nid, key, ov = k
+    N = len(y)
     order = np.argsort(key, kind="stable")
     lkey, lx, lsim, lnid, lyy = (
         key[order], x[order], sim[order], nid[order], y[order]
@@ -186,7 +217,7 @@ def _winner_arrays(hs, anchor_threshold: float, overlap: int):
     starts = np.concatenate([[0], bounds, [N]]).astype(np.int64)
     line_of = np.repeat(np.arange(len(starts) - 1), np.diff(starts))
 
-    widx = _run_winners(lkey, lsim, ov, N)
+    widx = run_winners_reference(lkey, lsim, ov, N)
     win_line = line_of[widx] if len(widx) else np.zeros(0, np.int64)
     line_bounds = np.flatnonzero(np.diff(win_line)) + 1
     return lnid[widx], lx[widx], lyy[widx], lsim[widx], line_bounds
@@ -194,7 +225,7 @@ def _winner_arrays(hs, anchor_threshold: float, overlap: int):
 
 def process_hits_struct(hs, anchor_threshold: float, overlap: int) -> list[list[MatchWithLetter]]:
     """Array-form process_hits (models/ncc.py::HitStruct input) — identical
-    semantics to process_hits, vectorized (see _winner_arrays), and
+    semantics to process_hits, in arrays (see _winner_arrays), and
     MatchWithLetter objects are built only for the surviving line hits
     (dense pages have ~10x more raw hits than survivors)."""
     w = _winner_arrays(hs, anchor_threshold, overlap)

@@ -1,5 +1,6 @@
-"""focr_tpu_torch's ncc CLI (--device cpu) against focr_tpu's, on the same
-pages: stdout byte for byte for the text, --csv and --raw outputs."""
+"""focr_tpu_torch's ncc CLI (--device cpu, and --engine native) against
+focr_tpu's, on the same pages: stdout byte for byte for the text, --csv and
+--raw outputs."""
 
 import numpy as np
 import pytest
@@ -75,6 +76,24 @@ def test_cli_raw_matches_focr_tpu(pages, mono_font_path, capsys, page):
     rc, out_t, _ = _run(torch_main, [*argv, "--device", "cpu"], capsys)
     assert rc == 0 and out_t == out_j
     assert all(len(r.split(",")) == 11 for r in out_t.splitlines())
+
+
+@pytest.mark.parametrize("mode", ["text", "csv", "raw", "verbose"])
+def test_cli_engine_native_matches_focr_tpu(pages, mono_font_path, capsys, mode):
+    """--engine native (the C++ host search; --device is not needed) prints
+    focr_tpu's --engine native stdout byte for byte."""
+    base = ["-f", mono_font_path, "-t", "13", "-a", ALPHA, "--engine", "native"]
+    argv = {
+        "text": ["-i", *pages, *base],
+        "csv": ["-i", *pages, *base, "--csv"],
+        "raw": ["-i", pages[1], *base, "--raw"],
+        "verbose": ["-i", *pages, *base, "-v"],
+    }[mode]
+    rc_j, out_j, _ = _run(jax_main, argv, capsys)
+    rc_t, out_t, err_t = _run(torch_main, argv, capsys)
+    assert rc_j == rc_t == 0
+    assert out_t == out_j and out_t.strip()
+    assert ("[native group" in err_t) == (mode == "verbose")
 
 
 def test_cli_rust_and_verbose_keep_stdout(pages, mono_font_path, capsys):
