@@ -27,7 +27,9 @@ Phases, each of which raises on failure:
   3. kernels — on the first 8-page wave, inverted and ink-cropped as the
                matcher does: K1 (ncc_sweep) and K2 (compact_hits) against
                their plain PyTorch versions on the card, exact (tolerance 0),
-               then timed with CUDA events
+               then timed with CUDA events, beside cuDNN's conv2d in TF32 on
+               the same wave and needles (a yardstick of the correlation
+               alone; the port never calls it)
   4. golden  — NccMatcher on the card decodes the fixture's two golden pages
                to focr_tpu's lines, through both kernels
   5. cli     — the ncc CLI on 16 pages: once in-process, with the launch
@@ -79,8 +81,16 @@ Phases, each of which raises on failure:
                CLI with --engine native on the two golden pages, whose lines
                must equal focr_tpu's
 
-Then one JSON line of the kernels (with the host tier's numbers under
-"host_native"), the card line, and last {"ok": true, "device": {...}}.
+Then a JSON line with the conv2d yardstick, one JSON line of the kernels
+(with the host tier's numbers under "host_native"), the card line, and last
+{"ok": true, "device": {...}}. Each kernel's entry carries its launches on
+the counted main path (phases 5, 8, 11) and per page, its max|err| against
+its plain version, its ms and plain_ms per page, bound_ms per page — the
+larger of its operations (2 per multiply-add, over the ink crop for K1 and
+the steps taken for K5) over the H100's int8 tensor-core peak and its bytes
+(inputs read once, outputs written once) over the memory rate — with
+bound_by, and library_ms (null: no single PyTorch call computes any of these
+functions). K1's entry carries its wide instance's numbers as wide_*.
 """
 
 from __future__ import annotations
@@ -124,6 +134,24 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+# the H100 SXM's published dense int8 tensor-core rate and memory rate (NVIDIA's
+# data sheet, at 700 W): every kernel here multiplies u8 pixels by u8 templates
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least ms the card could take for ``ops`` operations (2 per
+    multiply-add) and ``nbytes`` moved (each input read once, each output
+    written once), and which of the two bounds it."""
+    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def max_abs_err(a, b) -> int:
@@ -177,12 +205,17 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
             raise AssertionError(f"K4 mismatch on {label}: max|err| {e}, duplicate ids {bad}")
         return e, args
 
-    err, ms, plain_ms = 0, 0.0, 0.0
+    err, ms, plain_ms, ops, moved = 0, 0.0, 0.0, 0, 0
     for (grp, _), bank in zip(dec.groups, dec.banks):
         strips = focr_model.crop_strips(pages, grp.ys, grp.crop_h, dec.x0, dec.crop_w)
         e, args = check(f"corpus wave, row group h={grp.crop_h} ({len(grp.ys)} rows)", strips,
                         bank.templates, bank.tsq.astype(np.int64), bank.wx0)
         err = max(err, e)
+        # every (strip, cell, glyph) window: h x win_w multiply-adds
+        Bs, R, h, _ = args[0].shape
+        C, G, _, win_w = args[1].shape
+        ops += 2 * Bs * R * C * G * h * win_w
+        moved += nbytes(*args, *S.ssd_argmin(*args))
         k_ms = cuda_ms(lambda: S.ssd_argmin(*args), 20) / B
         p_ms = cuda_ms(lambda: S.ssd_argmin_reference(*args), 5) / B
         ms, plain_ms = ms + k_ms, plain_ms + p_ms
@@ -267,15 +300,18 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
         f"page's text decoded); in-process {B / wall:.2f} pages/s ({wall:.3f} s), subprocess "
         f"{B / sub_wall:.2f} pages/s ({sub_wall:.2f} s incl. start-up); K4 launches {launches}; "
         f"card {card}")
+    bound_ms, bound_by = bound(ops / B, moved / B)
     entry = {"name": "ssd_argmin", "route": "cuda", "source": "focr_tpu_torch/csrc/focr_ssd.cu",
              "replaces": "focr_tpu/models/focr.py:60", "launches": launches,
-             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+             "launches_per_page": launches / B, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": None}
     return entry, B / wall, B / sub_wall
 
 
-def wide_sweep_checks(dev) -> tuple[int, float, float]:
+def wide_sweep_checks(dev) -> tuple[int, float, float, tuple[float, str]]:
     """Phase 9's K1 wide-instance checks. Returns (max|err| against the plain
-    version, kernel ms/page, plain ms/page)."""
+    version, kernel ms/page, plain ms/page, (bound ms/page, what bounds it))."""
     import numpy as np
     import torch
 
@@ -330,14 +366,19 @@ def wide_sweep_checks(dev) -> tuple[int, float, float]:
         err = max(err, e)
     # timing at a -t 20 wave's shape: 74 needles of 21x13 on 792x662 pages
     imgs, needles = planted(2, 792, 662, 74, seed=32)
-    e, args, dg, _, _ = run(imgs, needles, 0.8)
+    e, args, dg, mask, rcnt = run(imgs, needles, 0.8)
     if e:
         raise AssertionError(f"K1 wide instance mismatch on the -t 20 wave: max|err| {e}")
-    k_ms = cuda_ms(lambda: K.ncc_sweep(*args, terms=dg.terms), 10) / len(imgs)
-    p_ms = cuda_ms(lambda: K.ncc_sweep_reference(*args, terms=dg.terms), 1) / len(imgs)
+    B, H, W = imgs.shape
+    T, nh, nw = needles.shape
+    k_bound = bound(2 * (H - nh + 1) * (W - nw + 1) * T * nh * nw,
+                    nbytes(*args[:2], *dg.terms[:2], mask, rcnt) / B)
+    k_ms = cuda_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag), 10) / B
+    p_ms = cuda_ms(lambda: K.ncc_sweep_reference(*args, terms=dg.terms), 1) / B
     log(f"[prop-kernels] K1 wide instance, 2 pages 792x662, 74 needles 21x13: vs plain "
-        f"max|err| {e}; ms/page K1 {k_ms:.4f} (plain {p_ms:.4f})")
-    return err, k_ms, p_ms
+        f"max|err| {e}; ms/page K1 {k_ms:.4f} (plain {p_ms:.4f}, bound {k_bound[0]:.4f} "
+        f"by {k_bound[1]})")
+    return err, k_ms, p_ms, k_bound
 
 
 def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
@@ -380,16 +421,21 @@ def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
             f"longest line {steps} of {f.n_steps} steps")
         if e:
             raise AssertionError(f"K5 mismatch on {label}: max|err| {e}")
-        return e, args
+        return e, args, ids
 
     inv = np.subtract(255, pages, dtype=np.uint8)
-    err, ms, plain_ms = 0, 0.0, 0.0
+    err, ms, plain_ms, ops, moved = 0, 0.0, 0.0, 0, 0
     for grp, pd in dec.prop_groups:
         strips = np.stack([inv[:, y : y + grp.crop_h, dec.x0 : dec.x0 + dec.crop_w]
                            for y in grp.ys], axis=1).reshape(-1, grp.crop_h, dec.crop_w)
-        e, args = check(f"prop wave, row group h={grp.crop_h} ({len(grp.ys)} rows)", strips, pd)
+        e, args, ids = check(f"prop wave, row group h={grp.crop_h} ({len(grp.ys)} rows)",
+                             strips, pd)
         err = max(err, e)
-        k_ms = cuda_ms(lambda: P.prop_scan(*args), 10) / B
+        # the steps these lines take, each G glyphs x h x wbank multiply-adds
+        G, _, h, wbank = args[1].shape
+        ops += 2 * int((ids != P.END_ID).sum()) * G * h * wbank
+        moved += nbytes(*args[:4], ids)
+        k_ms = cuda_ms(lambda: P.prop_scan(*args, words=pd.fwd.words), 10) / B
         p_ms = cuda_ms(lambda: P.prop_scan_reference(*args), 2) / B
         ms, plain_ms = ms + k_ms, plain_ms + p_ms
         log(f"[prop-kernels] row group h={grp.crop_h} ms/page: K5 {k_ms:.5f} (plain {p_ms:.5f})")
@@ -402,7 +448,7 @@ def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
         (12, 20), dev, banks=banks).prop_groups[0][1]
     err = max(err, check("narrow strip, windows hang past its edge",
                          rng.integers(0, 256, (6, 12, 20), dtype=np.uint8), narrow)[0])
-    wide_err, wide_ms, wide_plain_ms = wide_sweep_checks(dev)
+    wide_err, wide_ms, wide_plain_ms, wide_bound = wide_sweep_checks(dev)
 
     # 10. prop-golden: GridDecoder on the card reproduces focr_tpu's lines
     P.reset_launches()
@@ -451,10 +497,15 @@ def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
         f"focr_tpu's); in-process {B / wall:.2f} pages/s ({wall:.3f} s), subprocess "
         f"{B / sub_wall:.2f} pages/s ({sub_wall:.2f} s incl. start-up); K5 launches {launches}; "
         f"card {card}")
+    bound_ms, bound_by = bound(ops / B, moved / B)
     entry = {"name": "prop_scan", "route": "cuda", "source": "focr_tpu_torch/csrc/focr_prop.cu",
              "replaces": "focr_tpu/models/focr_prop.py:49", "launches": launches,
-             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    wide = {"wide_max_abs_err": wide_err, "wide_ms": wide_ms, "wide_plain_ms": wide_plain_ms}
+             "launches_per_page": launches / B, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": None}
+    wide = {"wide_max_abs_err": wide_err, "wide_ms": wide_ms, "wide_plain_ms": wide_plain_ms,
+            "wide_bound_ms": wide_bound[0], "wide_bound_by": wide_bound[1],
+            "wide_library_ms": None}
     return entry, wide, B / wall, B / sub_wall
 
 
@@ -634,6 +685,9 @@ def main() -> int:
     err = {"ncc_sweep": 0, "compact_hits": 0}
     ms = {"ncc_sweep": 0.0, "compact_hits": 0.0}
     plain_ms = {"ncc_sweep": 0.0, "compact_hits": 0.0}
+    ops = {"ncc_sweep": 0, "compact_hits": 0}  # K2 only moves bytes
+    moved = {"ncc_sweep": 0, "compact_hits": 0}
+    conv_ms = 0.0
     for g in groups:
         dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, THRESHOLD, dev)
         args = (inv_dev, dg.bank, dg.s_n, dg.s2_n, THRESHOLD)
@@ -652,8 +706,26 @@ def main() -> int:
             raise AssertionError(f"kernel mismatch in group {g.nw}x{g.nh}: K1 {e1}, K2 {e2}")
         err["ncc_sweep"] = max(err["ncc_sweep"], e1)
         err["compact_hits"] = max(err["compact_hits"], e2)
+        # every window of the ink crop against every needle: nh x nw multiply-adds
+        T, nh, nw = dg.bank.shape
+        ops["ncc_sweep"] += 2 * B * (Hc - nh + 1) * (Wc - nw + 1) * T * nh * nw
+        moved["ncc_sweep"] += nbytes(inv_dev, dg.bank, *dg.terms[:2], mask, rcnt)
+        moved["compact_hits"] += nbytes(mask, rcnt, *out)
+        # the yardstick of the correlation alone: cuDNN's conv2d in TF32 (0..255
+        # and their products are exact there, sums stay below 2^24); the port
+        # never calls it
+        x, w = inv_dev.float()[:, None], dg.bank.float()[:, None]
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            t_conv = cuda_ms(lambda: torch.nn.functional.conv2d(x, w), 5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        del x, w
+        conv_ms += t_conv / B
         ts = {
-            ("ncc_sweep", False): cuda_ms(lambda: K.ncc_sweep(*args, terms=dg.terms), 10),
+            ("ncc_sweep", False): cuda_ms(
+                lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag), 10),
             ("ncc_sweep", True): cuda_ms(lambda: K.ncc_sweep_reference(*args, terms=dg.terms), 3),
             ("compact_hits", False): cuda_ms(lambda: K.compact_hits(mask, rcnt), 10),
             ("compact_hits", True): cuda_ms(lambda: K.compact_hits_reference(mask, rcnt), 3),
@@ -661,8 +733,10 @@ def main() -> int:
         for (name, plain), t in ts.items():
             (plain_ms if plain else ms)[name] += t / B
         log(f"[kernels] group {g.nw}x{g.nh} ms/page: K1 {ts['ncc_sweep', False] / B:.4f} "
-            f"(plain {ts['ncc_sweep', True] / B:.4f}), K2 {ts['compact_hits', False] / B:.4f} "
+            f"(plain {ts['ncc_sweep', True] / B:.4f}, conv2d TF32 correlation alone "
+            f"{t_conv / B:.4f}), K2 {ts['compact_hits', False] / B:.4f} "
             f"(plain {ts['compact_hits', True] / B:.4f})")
+    bounds = {k: bound(ops[k] / B, moved[k] / B) for k in ops}
 
     # 4. golden: the matcher on the card reproduces focr_tpu's lines
     ropts = RenderOptions(size=13.0)
@@ -756,15 +830,15 @@ def main() -> int:
         f"incl. start-up); launches {launches}; host library calls {native_calls}; card {card}")
 
     kernels = [
-        {"name": "ncc_sweep", "route": "cuda", "source": "focr_tpu_torch/csrc/ncc_sweep.cu",
-         "replaces": "focr_tpu/ops/pallas_ncc.py:98", "launches": launches["ncc_sweep"],
-         "max_abs_err": err["ncc_sweep"], "ms": ms["ncc_sweep"],
-         "plain_ms": plain_ms["ncc_sweep"]},
-        {"name": "compact_hits", "route": "cuda",
-         "source": "focr_tpu_torch/csrc/ncc_compact.cu",
-         "replaces": "focr_tpu/ops/pallas_ncc.py:436", "launches": launches["compact_hits"],
-         "max_abs_err": err["compact_hits"], "ms": ms["compact_hits"],
-         "plain_ms": plain_ms["compact_hits"]},
+        {"name": name, "route": "cuda", "source": f"focr_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": launches[name],
+         "launches_per_page": launches[name] / len(pages), "max_abs_err": err[name],
+         "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
+        for name, src, replaces in (
+            ("ncc_sweep", "ncc_sweep.cu", "focr_tpu/ops/pallas_ncc.py:98"),
+            ("compact_hits", "ncc_compact.cu", "focr_tpu/ops/pallas_ncc.py:436"),
+        )
     ]
 
     # 6-8. the focr slice
@@ -778,6 +852,10 @@ def main() -> int:
     # 12. the ncc host library
     host_native = host_native_phase(matcher, pages, golden, host_build)
     host_native.update(host_build, ncc_cli_pages_per_s=len(pages) / wall)
+    print(json.dumps({"yardstick": "the correlation alone, not a library call of K1: "
+                      "torch.nn.functional.conv2d, f32 inputs in TF32, on phase 3's wave and "
+                      "needle groups (the port never calls it)",
+                      "kernel": "ncc_sweep", "conv2d_tf32_ms": conv_ms}), flush=True)
     print(json.dumps({"kernels": kernels, "host_native": host_native,
                       "cli_pages_per_s": len(pages) / wall,
                       "cli_subprocess_pages_per_s": len(pages) / sub_wall,

@@ -23,29 +23,12 @@
 // x = 32g + k, so a needle-local position y·(32·NW) + x equals the TPU
 // plane's — and rcnt int32 [B, T, Hs], the set bits of each mask row.
 //
-// What bounds it on the H100: int32 multiply-add throughput. An uncropped
-// canonical page (792×662, 296 needles of 13×8 and 13×9) takes about 17 G
-// multiply-adds. The design does four per instruction with __dp4a (u8·u8
-// summed into u32, exact), loads each 4-pixel group once for a tile of 8
-// needles (the needles' 4-byte words for one (dy, dx/4) are contiguous in
-// shared memory, read as two 16-byte broadcasts), and stages the page band
-// in shared memory once per block. Σp and Σp² ride the same loop (two more
-// dp4a), so window_stats is fused in. Nothing of the TPU's banding, ndmr
-// pre-shifted needle tiles or pack matrix is kept: those served VMEM and the
-// MXU. Tensor cores (integer wgmma) and TMA are later work.
-//
-// Block: (page, tile of TT needles, TR window rows × XW 32-column words);
-// each warp owns one (row, word) item at a time, one window column a lane,
-// and packs the keep bits with __ballot_sync. Row counts are summed with
-// integer atomics (exact), as several column tiles share a row.
-//
-// The wide instance (WIDE = true) serves what the test above does not:
-// needles with n·65025 >= 2^24, where the int -> f32 casts round, or
-// thr−ε <= 0, where num > c·den is no longer sim > c. It keeps the same
-// integer sums (u32 __dp4a, exact while n·65025 < 2^32; the host refuses
-// n·65025 >= 2^31, as focr_tpu's i32 correlate does) and replaces the test by
-// focr_tpu/ops/ncc.py::ncc_candidates (:193-232), op for op in f32, with no
-// FMA:
+// The wide instance serves what the test above does not: needles with
+// n·65025 >= 2^24, where the int -> f32 casts round, or thr−ε <= 0, where
+// num > c·den is no longer sim > c. It keeps the same integer sums (exact in
+// s32 while n·65025 < 2^31, which the host enforces, as focr_tpu's i32
+// correlate does) and replaces the test by focr_tpu/ops/ncc.py::
+// ncc_candidates (:193-232), op for op in f32, with no FMA:
 //
 //   valid  = sp > 0 && n·s2p − sp² > 0 (exact int64) && needle norm² > 0
 //   norm2p = f32(s2p) − f32(sp)·f32(sp) / f32(n)
@@ -56,20 +39,88 @@
 // with the lower bound of den for thr−ε >= 0 and the upper one below 0
 // (rn[t] carries the needle's side, NaN for a zero-variance needle, which
 // fails every compare); err_p = 8·2⁻²⁴·n·65025 and slack = 32·2⁻²⁴·n·65025
-// + 16 cover every rounding, so the set is still a superset. Where the needle
-// tile would overflow shared memory, the wide instance reads the host-packed
-// needle words from device memory instead (L1 broadcasts).
+// + 16 cover every rounding, so the set is still a superset.
+//
+// What bounds it on the H100. The canonical ncc wave (8 pages cropped to
+// 766×626, 74 needles of 13×8 and 222 of 13×9) needs ~15.7 G u8
+// multiply-adds a page: 31 G int8 operations, 0.016 ms at the 1,979 TOP/s of
+// the int8 tensor cores; the mask plane it writes is ~17.4 MB a page, 0.005
+// ms at 3.35 TB/s. So the correlation bounds it, and it belongs on the tensor
+// cores (as the TPU kernel's jnp.dot on the MXU, pallas_ncc.py:197-201).
+// Beside it, the threshold test is ~7 f32/int ops for each of the ~147 M
+// (needle, window) pairs a page (needles padded to 16, columns to 32), about
+// 0.035 ms of the CUDA cores' instruction rate; a column outside the keep
+// domain carries q = NaN, which fails the compare exactly as the && did, so
+// the domain costs nothing a needle. Measured on the H100, the test is not
+// what sets this design's pace (a variant with one integer compare in its
+// place ran only ~15% faster; converting acc < 2^23 to f32 by OR-and-subtract
+// in place of the I2F instruction ran ~2.5% slower): the shared-memory
+// traffic of building B and reading A, and issuing the mma.sync, are. That is
+// why B is built once an item and held in registers for every chunk of
+// needles (0.184 ms/page against 0.228 rebuilding it for every chunk of 2
+// M-tiles, 0.284 for every chunk of 4).
+//
+// The design: acc is an implicit GEMM on the int8 tensor cores,
+// mma.sync.m16n8k32.row.col.s32.u8.u8.s32, exact (u8·u8 summed into s32).
+//
+//   M = 16 needles. K = the needle's pixels as 4-byte words (dy, q), each
+//   needle row padded to nw4 = ceil(nw/4) words, the total padded to a
+//   multiple of 8 words (32 bytes, one k-step): 4 k-steps for 13×8, 5 for
+//   13×9. The padding bytes of A are 0, so whatever page bytes meet them in
+//   B add nothing to acc. The host packs A in fragment order
+//   (ops/ncc_kernels.py::pack_needle_fragments: one uint4 a lane for each
+//   (M-tile, k-step), once a needle bank) and the block stages its M-tiles'
+//   fragments in shared memory; where they do not fit (the wide instance's
+//   largest needles) the block reads them from device memory.
+//   N = 8 consecutive window columns of one window row. Lane 4g+tq holds
+//   window column g and k-words 8s+tq, 8s+tq+4; each register is one
+//   __funnelshift_r of two shared-memory words of the page band (window
+//   columns are not 4-aligned), at a byte offset (dy·pitch + 4q) read from a
+//   per-block table, so one B fragment serves every M-tile of the item.
+//
+// A warp item is one window row × one 32-column mask word: 4 N-tiles, and
+// every needle of the block, in chunks of MT = 2 M-tiles (32 C registers a
+// lane). A block takes at most MTZ = 16 M-tiles (256 needles: every group of
+// the main path); a larger group spreads its M-tiles over grid.z, so the
+// shared memory a block needs does not grow with the group. The B fragments
+// of up to KH = 5 k-steps (40 registers) are built once an item and serve
+// every chunk; a larger needle rebuilds them for each chunk and each KH
+// k-steps. The C fragment puts needle rows g, g+8 against columns 2tq, 2tq+1
+// of each N-tile, so a lane holds 8 of the 32 keep bits of each of its two
+// needles' words; two __shfl_xor_sync ORs
+// (1, 2) complete the words, with no ballot and no shared-memory staging. Σp
+// and Σp² are per window, not per needle: each lane computes them once an
+// item for its own column with __dp4a over the real pixels only (the byte
+// mask keeps the K padding and the bytes past nw out of them), turns them
+// into the column's f32 terms (one sqrt), and the epilogue fetches the 8
+// columns it needs by __shfl_sync. Row counts are __popc of the words,
+// summed with integer atomics (exact) as several column tiles share a row.
+//
+// Block: (page, TR window rows × XW mask words, MTZ M-tiles), 8 warps over
+// the valid items. The launcher derives the whole plan (k-steps, grid, where
+// A lives) from T, nh and nw. Left for a later PR: wgmma (it needs B in
+// shared memory in its canonical layout, i.e. the im2col tile written there
+// first: this design builds B in registers instead), TMA or cp.async
+// double-buffering of the page band, and staging the mask words so they
+// leave the SM coalesced.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TT = 8;       // needles per block (two uint4 of needle words)
-constexpr int TR = 16;      // window rows per block
+constexpr int MT = 2;       // 16-needle M-tiles a chunk holds at most
+constexpr int MTZ = 16;     // M-tiles a block holds at most (the rest: grid.z)
+constexpr int NT = 4;       // 8-column N-tiles a warp item: one 32-column word
+constexpr int KH = 5;       // k-steps of B fragments held in registers
+constexpr int TR = 8;       // window rows per block
 constexpr int XW = 8;       // 32-column words per block: 256 window columns
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
+constexpr size_t SMEM_MAX = 232448 - 1024;  // shared memory a block may use on the H100
+
+// the two instances: the narrow test and the wide test
+enum Mode { NARROW = 0, WIDE = 1 };
 
 // Scalars of the wide instance's test (see above), computed by the host.
 struct WideTest {
@@ -78,57 +129,76 @@ struct WideTest {
     float slack;
 };
 
-template <bool WIDE>
+__device__ __forceinline__ void mma_u8(int (&c)[4], const uint4& a, uint32_t b0, uint32_t b1)
+{
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// keep for one (needle, column): q is NaN for a column outside the domain
+template <int MODE>
+__device__ __forceinline__ bool keep_test(int acc, float sn, float rtn, float spf, float q,
+                                          float thr_eps, float inv_n, const WideTest& wt)
+{
+    if constexpr (MODE == WIDE) {
+        const float num = __fsub_rn(__uint2float_rn(static_cast<uint32_t>(acc)),
+                                    __fmul_rn(__fmul_rn(sn, spf), inv_n));
+        const float den = __fmul_rn(__fmul_rn(rtn, q), wt.c_den);
+        return num > __fsub_rn(__fmul_rn(thr_eps, den), wt.slack);
+    } else {
+        // acc < 2^24 (n·65025 < 2^24 picks this instance): exact in f32
+        const float num = __fmaf_rn(-sn, spf, static_cast<float>(acc));
+        return num > __fmaf_rn(thr_eps, __fmul_rn(rtn, q), -48.f);
+    }
+}
+
+template <int MODE, bool ASMEM>
 __global__ void __launch_bounds__(NTHREADS)
 ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
-                 const uint8_t* __restrict__ needles, int T, int nh, int nw,
+                 const uint4* __restrict__ afrag, int T, int nh, int nw, int nks,
                  const float* __restrict__ sn_n, const float* __restrict__ rtn,
                  float thr_eps, float inv_n,
                  int32_t* __restrict__ mask, int32_t* __restrict__ rcnt,
-                 int Hs, int NW, int n_xt, int pitch,
-                 const uint32_t* __restrict__ nd_words, WideTest wt)
+                 int Hs, int NW, int n_xt, int pitch, WideTest wt)
 {
     extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ float sn_s[TT];
-    __shared__ float rtn_s[TT];
-
     const int nw4 = (nw + 3) >> 2;  // 4-byte needle words per needle row
-    // nd_s[(dy·nw4 + q)·TT + t]: byte k = needle[t0+t][dy][4q+k], 0 past nw/T
-    uint32_t* nd_s = reinterpret_cast<uint32_t*>(smem);
-    // the wide instance may read the same layout from device memory
-    const bool nd_global = WIDE && nd_words != nullptr;
+    // this block's M-tiles: mz0 .. mz0 + nmz - 1
+    const int mz0 = blockIdx.z * MTZ;
+    const int nmz = min(MTZ, ((T + 15) >> 4) - mz0);
+    // a_s[(m·nks + s)·32 + lane] (ablk in device memory): the lane's A
+    // fragment of the block's M-tile m, k-step s, as packed by the host
+    const uint4* ablk = afrag + static_cast<size_t>(mz0) * nks * 32;
+    uint4* a_s = reinterpret_cast<uint4*>(smem);
+    const size_t a_bytes = ASMEM ? static_cast<size_t>(nmz) * nks * 32 * 16 : 0;
+    float* sn_s = reinterpret_cast<float*>(smem + a_bytes);
+    float* rtn_s = sn_s + nmz * 16;
+    // koff_s[w]: byte offset in the band of k-word w = (dy, q) of a window,
+    // dy·pitch + 4q; 0 for the padding words (their A bytes are 0)
+    int* koff_s = reinterpret_cast<int*>(rtn_s + nmz * 16);
     // img_s[r·pitch + c] = page[y0 + r][xb + c], 0 outside the page
-    unsigned char* img_s = smem + (nd_global ? 0 : static_cast<size_t>(nh) * nw4 * TT * 4);
+    unsigned char* img_s = reinterpret_cast<unsigned char*>(koff_s + nks * 8);
 
     const int xt = blockIdx.x % n_xt;
     const int band = blockIdx.x / n_xt;
-    const int t0 = blockIdx.y * TT;
-    const int b = blockIdx.z;
+    const int b = blockIdx.y;
     const int y0 = band * TR;
     const int g0 = xt * XW;
     const int xb = g0 * 32;
     const int tid = threadIdx.x;
 
-    const uint32_t* nd = nd_s;
-    if (nd_global) nd = nd_words + static_cast<size_t>(blockIdx.y) * nh * nw4 * TT;
-    for (int i = tid; !nd_global && i < nh * nw4 * TT; i += NTHREADS) {
-        const int t = i % TT;
-        const int q = (i / TT) % nw4;
-        const int dy = i / (TT * nw4);
-        uint32_t v = 0;
-        if (t0 + t < T) {
-            const uint8_t* src = needles + (static_cast<size_t>(t0 + t) * nh + dy) * nw;
-            for (int k = 0; k < 4; ++k) {
-                const int dx = 4 * q + k;
-                if (dx < nw) v |= static_cast<uint32_t>(src[dx]) << (8 * k);
-            }
-        }
-        nd_s[i] = v;
+    if constexpr (ASMEM)
+        for (int i = tid; i < nmz * nks * 32; i += NTHREADS) a_s[i] = ablk[i];
+    for (int i = tid; i < nmz * 16; i += NTHREADS) {
+        const int t = mz0 * 16 + i;
+        sn_s[i] = t < T ? sn_n[t] : 0.f;
+        rtn_s[i] = t < T ? rtn[t] : 0.f;
     }
-    if (tid < TT) {
-        const bool ok = t0 + tid < T;
-        sn_s[tid] = ok ? sn_n[t0 + tid] : 0.f;
-        rtn_s[tid] = ok ? rtn[t0 + tid] : 0.f;
+    for (int w = tid; w < nks * 8; w += NTHREADS) {
+        const int dy = w / nw4;
+        koff_s[w] = dy < nh ? dy * pitch + 4 * (w - dy * nw4) : 0;
     }
     const int brows = TR + nh - 1;
     const uint8_t* page = imgs + static_cast<size_t>(b) * H * W;
@@ -143,54 +213,46 @@ ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
 
     const int warp = tid >> 5;
     const int lane = tid & 31;
+    const int gq = lane >> 2;  // the fragments' groupID
+    const int tq = lane & 3;   // and thread-in-group
     const int Wv = W - nw + 1;
-    for (int item = warp; item < TR * XW; item += NWARPS) {
-        const int r = item / XW;
-        const int gw = item - r * XW;
+    const int nrv = min(TR, Hs - y0);  // the block's valid rows and words
+    const int nwv = min(XW, NW - g0);
+    for (int item = warp; item < nrv * nwv; item += NWARPS) {
+        const int r = item / nwv;
+        const int gw = item - r * nwv;
         const int y = y0 + r;
         const int g = g0 + gw;
-        if (y >= Hs || g >= NW) continue;  // whole warp
-        const int xl = gw * 32 + lane;
-        const int x = xb + xl;
-        const int sh = (xl & 3) * 8;
+        const int xw = gw * 32;  // band column of the word's first window
 
-        uint32_t acc[TT];
-#pragma unroll
-        for (int t = 0; t < TT; ++t) acc[t] = 0;
+        // Σp, Σp² of this lane's own window column xw + lane, real pixels only
         uint32_t sp = 0, s2p = 0;
-        for (int dy = 0; dy < nh; ++dy) {
-            const uint32_t* rw =
-                reinterpret_cast<const uint32_t*>(img_s + (r + dy) * pitch) + (xl >> 2);
-            const uint4* ndr = reinterpret_cast<const uint4*>(nd + dy * nw4 * TT);
-            uint32_t lo = rw[0];
-            for (int q = 0; q < nw4; ++q) {
-                const uint32_t hi = rw[q + 1];
-                // pixels x+4q .. x+4q+3 of row y+dy, lowest byte first
-                const uint32_t p4 = __funnelshift_r(lo, hi, sh);
-                lo = hi;
-                const int valid = nw - 4 * q;
-                const uint32_t pm =
-                    valid >= 4 ? p4 : (p4 & ((1u << (8 * valid)) - 1u));
-                sp = __dp4a(pm, 0x01010101u, sp);
-                s2p = __dp4a(pm, pm, s2p);
-                const uint4 na = ndr[2 * q];
-                const uint4 nb = ndr[2 * q + 1];
-                acc[0] = __dp4a(p4, na.x, acc[0]);
-                acc[1] = __dp4a(p4, na.y, acc[1]);
-                acc[2] = __dp4a(p4, na.z, acc[2]);
-                acc[3] = __dp4a(p4, na.w, acc[3]);
-                acc[4] = __dp4a(p4, nb.x, acc[4]);
-                acc[5] = __dp4a(p4, nb.y, acc[5]);
-                acc[6] = __dp4a(p4, nb.z, acc[6]);
-                acc[7] = __dp4a(p4, nb.w, acc[7]);
+        {
+            const int xl = xw + lane;
+            const int sh = (xl & 3) * 8;
+            for (int dy = 0; dy < nh; ++dy) {
+                const uint32_t* rw =
+                    reinterpret_cast<const uint32_t*>(img_s + (r + dy) * pitch) + (xl >> 2);
+                uint32_t lo = rw[0];
+                for (int q = 0; q < nw4; ++q) {
+                    const uint32_t hi = rw[q + 1];
+                    const uint32_t p4 = __funnelshift_r(lo, hi, sh);
+                    lo = hi;
+                    const int valid = nw - 4 * q;
+                    const uint32_t pm =
+                        valid >= 4 ? p4 : (p4 & ((1u << (8 * valid)) - 1u));
+                    sp = __dp4a(pm, 0x01010101u, sp);
+                    s2p = __dp4a(pm, pm, s2p);
+                }
             }
         }
-
+        // the column's f32 terms, as the test above defines them; q = NaN
+        // outside the keep domain
+        const int x = xb + xw + lane;
         bool row_ok;
-        float spf, q;
-        if constexpr (WIDE) {
-            // sp < 2^24 converts exactly; s2p and acc (< 2^31) round, as in
-            // ncc_candidates
+        float spf, qv;
+        if constexpr (MODE == WIDE) {
+            // sp < 2^24 converts exactly; s2p (< 2^31) rounds, as in ncc_candidates
             spf = __int2float_rn(static_cast<int>(sp));
             const float norm2p = __fsub_rn(__int2float_rn(static_cast<int>(s2p)),
                                            __fdiv_rn(__fmul_rn(spf, spf),
@@ -198,36 +260,108 @@ ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
             const long long var = static_cast<long long>(nh * nw) * s2p
                                   - static_cast<long long>(sp) * sp;
             row_ok = sp > 0 && var > 0 && x >= 1 && x < Wv && y >= 1;
-            q = __fsqrt_rn(fmaxf(__fadd_rn(norm2p, wt.err), 0.f));
+            qv = __fsqrt_rn(fmaxf(__fadd_rn(norm2p, wt.err), 0.f));
         } else {
-            // every value below is an exact integer < 2^24 (n·65025 < 2^24
-            // picks this instance), so the int -> f32 conversions are exact
+            // every value is an exact integer < 2^24 (n·65025 < 2^24 picks
+            // this instance), so the int -> f32 conversions are exact
             spf = static_cast<float>(static_cast<int>(sp));
             const float s2pf = static_cast<float>(static_cast<int>(s2p));
             const float norm2p = __fmaf_rn(-__fmul_rn(spf, spf), inv_n, s2pf);
             row_ok = spf > 0.f && norm2p > -8.f && x >= 1 && x < Wv && y >= 1;
-            q = __fsqrt_rn(fmaxf(__fsub_rn(norm2p, 8.f), 0.f));
+            qv = __fsqrt_rn(fmaxf(__fsub_rn(norm2p, 8.f), 0.f));
         }
+        qv = row_ok ? qv : __int_as_float(0x7fffffff);
+        // the terms of the 8 columns this lane's C elements sit in:
+        // column 8·nt + 2·tq + e of the word
+        float spc[NT][2], qc[NT][2];
 #pragma unroll
-        for (int t = 0; t < TT; ++t) {
-            if (t0 + t >= T) break;  // whole warp
-            bool keep;
-            if constexpr (WIDE) {
-                const float num = __fsub_rn(__uint2float_rn(acc[t]),
-                                            __fmul_rn(__fmul_rn(sn_s[t], spf), inv_n));
-                const float den = __fmul_rn(__fmul_rn(rtn_s[t], q), wt.c_den);
-                keep = row_ok && num > __fsub_rn(__fmul_rn(thr_eps, den), wt.slack);
-            } else {
-                const float num =
-                    __fmaf_rn(-sn_s[t], spf, static_cast<float>(static_cast<int>(acc[t])));
-                const float rhs = __fmaf_rn(thr_eps, __fmul_rn(rtn_s[t], q), -48.f);
-                keep = row_ok && num > rhs;
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                spc[nt][e] = __shfl_sync(0xffffffffu, spf, 8 * nt + 2 * tq + e);
+                qc[nt][e] = __shfl_sync(0xffffffffu, qv, 8 * nt + 2 * tq + e);
             }
-            const uint32_t m = __ballot_sync(0xffffffffu, keep);
-            if (lane == 0) {
-                const size_t row = (static_cast<size_t>(b) * T + t0 + t) * Hs + y;
-                mask[row * NW + g] = static_cast<int32_t>(m);
-                if (m) atomicAdd(&rcnt[row], __popc(m));
+
+        // band word holding window column xw + gq (N-tile nt adds 8·nt bytes)
+        const unsigned char* bcol = img_s + r * pitch + ((xw + gq) & ~3);
+        const int bsh = (gq & 3) * 8;  // (xw + 8·nt + gq) & 3 == gq & 3
+        // B for KH k-steps at a time: built once an item where nks <= KH
+        // (every narrow needle of the main path) and kept for every chunk
+        uint32_t bf[KH][NT][2];
+        for (int m0 = 0; m0 < nmz; m0 += MT) {
+            const int mts = min(MT, nmz - m0);  // this chunk's M-tiles, 1..MT
+            // acc on the tensor cores: C[mt][nt] = A[mt] · B[nt] over the k-steps
+            int acc[MT][NT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+            for (int k0 = 0; k0 < nks; k0 += KH) {
+                if (m0 == 0 || nks > KH) {
+#pragma unroll
+                    for (int s = 0; s < KH; ++s) {
+                        if (k0 + s >= nks) break;
+                        const int o0 = koff_s[8 * (k0 + s) + tq];
+                        const int o1 = koff_s[8 * (k0 + s) + tq + 4];
+#pragma unroll
+                        for (int nt = 0; nt < NT; ++nt) {
+                            const uint32_t* p0 =
+                                reinterpret_cast<const uint32_t*>(bcol + 8 * nt + o0);
+                            const uint32_t* p1 =
+                                reinterpret_cast<const uint32_t*>(bcol + 8 * nt + o1);
+                            bf[s][nt][0] = __funnelshift_r(p0[0], p0[1], bsh);
+                            bf[s][nt][1] = __funnelshift_r(p1[0], p1[1], bsh);
+                        }
+                    }
+                }
+#pragma unroll
+                for (int s = 0; s < KH; ++s) {
+                    if (k0 + s >= nks) break;
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt) {
+                        if (mt >= mts) break;  // whole warp
+                        const int ai = ((m0 + mt) * nks + k0 + s) * 32 + lane;
+                        const uint4 av = ASMEM ? a_s[ai] : __ldg(ablk + ai);
+#pragma unroll
+                        for (int nt = 0; nt < NT; ++nt)
+                            mma_u8(acc[mt][nt], av, bf[s][nt][0], bf[s][nt][1]);
+                    }
+                }
+            }
+
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                if (mt >= mts) break;  // whole warp
+                const int tl = (m0 + mt) * 16 + gq;  // this lane's block rows tl, tl + 8
+                const float sn_lo = sn_s[tl], rtn_lo = rtn_s[tl];
+                const float sn_hi = sn_s[tl + 8], rtn_hi = rtn_s[tl + 8];
+                uint32_t w_lo = 0, w_hi = 0;
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int c = 8 * nt + 2 * tq + e;
+                        if (keep_test<MODE>(acc[mt][nt][e], sn_lo, rtn_lo, spc[nt][e],
+                                            qc[nt][e], thr_eps, inv_n, wt))
+                            w_lo |= 1u << c;
+                        if (keep_test<MODE>(acc[mt][nt][2 + e], sn_hi, rtn_hi, spc[nt][e],
+                                            qc[nt][e], thr_eps, inv_n, wt))
+                            w_hi |= 1u << c;
+                    }
+                w_lo |= __shfl_xor_sync(0xffffffffu, w_lo, 1);
+                w_lo |= __shfl_xor_sync(0xffffffffu, w_lo, 2);
+                w_hi |= __shfl_xor_sync(0xffffffffu, w_hi, 1);
+                w_hi |= __shfl_xor_sync(0xffffffffu, w_hi, 2);
+                // lane tq = 0 writes needle row tl's word, tq = 1 row tl + 8's
+                const int t = mz0 * 16 + tl + 8 * tq;
+                if (tq < 2 && t < T) {
+                    const uint32_t m = tq ? w_hi : w_lo;
+                    const size_t row = (static_cast<size_t>(b) * T + t) * Hs + y;
+                    mask[row * NW + g] = static_cast<int32_t>(m);
+                    if (m) atomicAdd(&rcnt[row], __popc(m));
+                }
             }
         }
     }
@@ -235,45 +369,54 @@ ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
 
 }  // namespace
 
-// imgs u8 [B, H, W]; needles u8 [T, nh, nw]; sn_n, rtn f32 [T];
-// mask int32 [B, T, H-nh+1, NW] (every word written); rcnt int32
-// [B, T, H-nh+1], zeroed by the caller. wide = 0: the narrow test (sn_n =
-// Σn/n, rtn = √norm² or +inf, inv_n = f32(1/n)); wide = 1: the wide test
-// (sn_n = f32(Σn), rtn = the needle's side of den or NaN, inv_n = 1/f32(n),
-// and err, c_den, slack); nd_words, for the wide test only and may be null:
-// the needle words packed as [ceil(T/8), nh, ceil(nw/4), 8] u32, read from
-// device memory in place of the shared-memory tile. Returns
-// cudaGetLastError().
+// imgs u8 [B, H, W]; afrag: the needles [T, nh, nw] packed in fragment order
+// by ops/ncc_kernels.py::pack_needle_fragments, uint4 [ceil(T/16), nks, 32]
+// with nks = ceil(nh·ceil(nw/4) / 8); sn_n, rtn f32 [T]; mask int32 [B, T,
+// H-nh+1, NW] (every word written); rcnt int32 [B, T, H-nh+1], zeroed by the
+// caller. wide = 0: the narrow test (sn_n = Σn/n, rtn = √norm² or +inf, inv_n
+// = f32(1/n)); wide = 1: the wide test (sn_n = f32(Σn), rtn = the needle's
+// side of den or NaN, inv_n = 1/f32(n), and err, c_den, slack). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue where one block's page band
+// alone exceeds the shared memory (a needle taller than ~850 rows).
 extern "C" int focr_ncc_sweep(const void* imgs, int B, int H, int W,
-                              const void* needles, int T, int nh, int nw,
+                              const void* afrag, int T, int nh, int nw,
                               const void* sn_n, const void* rtn,
                               float thr_eps, float inv_n,
                               void* mask, void* rcnt, void* stream,
-                              int wide, const void* nd_words,
-                              float err, float c_den, float slack)
+                              int wide, float err, float c_den, float slack)
 {
     const int Hs = H - nh + 1;
     const int NW = (W - nw + 1 + 31) / 32;
     const int nw4 = (nw + 3) / 4;
+    const int nks = (nh * nw4 + 7) / 8;
     const int pitch = XW * 32 + 4 * nw4;  // covers x + dx and the funnel's next word
     const int n_bands = (Hs + TR - 1) / TR;
     const int n_xt = (NW + XW - 1) / XW;
-    const size_t smem = (wide && nd_words ? 0 : static_cast<size_t>(nh) * nw4 * TT * 4)
+    const int n_mt = (T + 15) / 16;
+    const int nmz = n_mt < MTZ ? n_mt : MTZ;  // M-tiles of the largest block
+    // the shared memory: A's fragments where they fit beside the rest
+    const size_t band = static_cast<size_t>(nmz) * 16 * 4 * 2
+                        + static_cast<size_t>(nks) * 8 * 4
                         + static_cast<size_t>(TR + nh - 1) * pitch;
-    auto kernel = wide ? ncc_sweep_kernel<true> : ncc_sweep_kernel<false>;
+    const size_t a_bytes = static_cast<size_t>(nmz) * nks * 32 * 16;
+    if (band > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    const bool a_smem = band + a_bytes <= SMEM_MAX;
+    const size_t smem = band + (a_smem ? a_bytes : 0);
+    auto kernel = wide
+        ? (a_smem ? ncc_sweep_kernel<WIDE, true> : ncc_sweep_kernel<WIDE, false>)
+        : (a_smem ? ncc_sweep_kernel<NARROW, true> : ncc_sweep_kernel<NARROW, false>);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const dim3 grid(n_bands * n_xt, (T + TT - 1) / TT, B);
+    const dim3 grid(n_bands * n_xt, B, (n_mt + MTZ - 1) / MTZ);
     kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(imgs), H, W,
-        static_cast<const uint8_t*>(needles), T, nh, nw,
+        static_cast<const uint4*>(afrag), T, nh, nw, nks,
         static_cast<const float*>(sn_n), static_cast<const float*>(rtn),
         thr_eps, inv_n,
         static_cast<int32_t*>(mask), static_cast<int32_t*>(rcnt),
-        Hs, NW, n_xt, pitch, static_cast<const uint32_t*>(nd_words),
-        WideTest{err, c_den, slack});
+        Hs, NW, n_xt, pitch, WideTest{err, c_den, slack});
     return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from focr_tpu_torch.fonts.bank import PropBank
-from focr_tpu_torch.ops.prop_kernels import END_ID, check_bank, prop_scan
+from focr_tpu_torch.ops.prop_kernels import END_ID, check_bank, prop_scan, template_words
 
 
 def max_steps(bank: PropBank, crop_w: int) -> int:
@@ -36,7 +36,8 @@ def max_steps(bank: PropBank, crop_w: int) -> int:
 class PropForward(torch.nn.Module):
     """[L, crop_h, crop_w] u8 inverted strips -> ids u8 [L, n_steps]:
     make_prop_forward (focr_tpu/models/focr_prop.py:49-160) as a module whose
-    buffers are the bank on ``device``. Refuses the banks focr_tpu refuses
+    buffers are the bank on ``device`` (its templates also in K5's word
+    layout, made once here). Refuses the banks focr_tpu refuses
     (:79, :84-86)."""
 
     def __init__(self, bank: PropBank, crop_w: int, n_steps: int, device: torch.device):
@@ -45,6 +46,7 @@ class PropForward(torch.nn.Module):
         check_bank(G, crop_h * wbank)
         self.register_buffer(
             "templates", torch.from_numpy(np.ascontiguousarray(bank.templates)).to(device))
+        self.register_buffer("words", template_words(self.templates))
         self.register_buffer(
             "colsq_cum", torch.from_numpy(bank.colsq_cum.astype(np.int32)).to(device))
         self.register_buffer(
@@ -58,7 +60,7 @@ class PropForward(torch.nn.Module):
         if strips.shape[-1] != self.crop_w:
             raise ValueError(f"prop forward: strips of width {strips.shape[-1]}, not {self.crop_w}")
         return prop_scan(strips, self.templates, self.colsq_cum, self.advances, self.base,
-                         self.ox, self.n_steps)
+                         self.ox, self.n_steps, words=self.words)
 
 
 class PropDecoder:

@@ -37,7 +37,12 @@ from focr_tpu_torch.fonts.ft import Face
 from focr_tpu_torch.models.types import MAX_MATCHES, BoxSize, MatchWithLetter, RenderOptions
 from focr_tpu_torch.native import ncc_cpu
 from focr_tpu_torch.ops.ncc import word_stride
-from focr_tpu_torch.ops.ncc_kernels import compact_hits, ncc_sweep, sweep_terms
+from focr_tpu_torch.ops.ncc_kernels import (
+    compact_hits,
+    ncc_sweep,
+    pack_needle_fragments,
+    sweep_terms,
+)
 from focr_tpu_torch.utils.device import resolve_device
 
 WAVE = 8  # pages per device wave
@@ -148,7 +153,7 @@ def _group_needles(needles: list[Needle]) -> list[_Group]:
 @dataclass(frozen=True)
 class DeviceGroup:
     """One size group's needle bank on the device, with the sweep's derived
-    per-needle f32 terms."""
+    per-needle f32 terms and K1's packing of the bank."""
 
     bank: torch.Tensor  # [T, nh, nw] u8
     s_n: torch.Tensor  # [T] i64
@@ -156,6 +161,7 @@ class DeviceGroup:
     sn_n: torch.Tensor  # [T] f32 Σn / n
     rtn: torch.Tensor  # [T] f32 √norm², +inf for zero-variance needles
     thr_eps: float  # f32(threshold) − f32(ε), exactly representable in f32
+    afrag: torch.Tensor  # int32 [ceil(T/16), nks, 32, 4] pack_needle_fragments(bank)
 
     @property
     def terms(self) -> tuple[torch.Tensor, torch.Tensor, float]:
@@ -178,6 +184,7 @@ def group_from_numpy(
     return DeviceGroup(
         bank=bank_t.to(device), s_n=s_n_t.to(device), s2_n=s2_n_t.to(device),
         sn_n=sn_n.to(device), rtn=rtn.to(device), thr_eps=thr_eps,
+        afrag=pack_needle_fragments(bank_t).to(device),
     )
 
 
@@ -381,7 +388,8 @@ class NccMatcher:
                             pp.append((grp, "empty", None))
                         continue
                     mask, rcnt = ncc_sweep(
-                        inv_dev, dg.bank, dg.s_n, dg.s2_n, self.threshold, terms=dg.terms
+                        inv_dev, dg.bank, dg.s_n, dg.s2_n, self.threshold, terms=dg.terms,
+                        afrag=dg.afrag,
                     )
                     pos, off, hcnt, _ = compact_hits(mask, rcnt)
                     pos, off, hcnt = pos.cpu().numpy(), off.cpu().numpy(), hcnt.cpu().numpy()

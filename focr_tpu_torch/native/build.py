@@ -130,13 +130,13 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.focr_ncc_sweep.argtypes = [p, i, i, i, p, i, i, i, p, p, f, f, p, p, p, i, p, f, f, f]
+    lib.focr_ncc_sweep.argtypes = [p, i, i, i, p, i, i, i, p, p, f, f, p, p, p, i, f, f, f]
     lib.focr_ncc_sweep.restype = i
     lib.focr_ncc_compact.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
     lib.focr_ncc_compact.restype = i
     lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, i, i, i, p, p, p]
     lib.focr_ssd_argmin.restype = i
-    lib.focr_prop_scan.argtypes = [p, i, i, i, p, p, p, i, i, i, f, i, p, p]
+    lib.focr_prop_scan.argtypes = [p, i, i, i, p, i, p, p, i, i, i, f, i, p, p]
     lib.focr_prop_scan.restype = i
     _lib = lib
     return lib

@@ -212,33 +212,44 @@ def ncc_sweep_reference(
     return mask, rcnt
 
 
-# the kernel's block shape (csrc/ncc_sweep.cu): needle tile, window rows,
-# 32-column words; and the shared memory a block may use on the H100
-_TT, _TR, _XW = 8, 16, 8
-_SMEM_MAX = 232448 - 1024
+def k_steps(nh: int, nw: int) -> int:
+    """The kernel's k-steps of 32 bytes: the needle as 4-byte words (dy, q),
+    each row padded to ceil(nw/4) words, the total padded to a multiple of 8
+    words (4 for 13x8, 5 for 13x9)."""
+    return -(-nh * -(-nw // 4) // 8)
 
 
-def _tile_fits(nh: int, nw: int) -> bool:
-    """Whether the kernel's shared memory holds the needle tile beside the
-    page band; the band alone must fit."""
-    nw4 = -(-nw // 4)
-    band = (_TR + nh - 1) * (_XW * 32 + 4 * nw4)
-    if band > _SMEM_MAX:
-        raise ValueError(f"ncc_sweep: a {nw}x{nh} needle's page band ({band} bytes) "
-                         "exceeds the kernel's shared memory")
-    return nh * nw4 * _TT * 4 + band <= _SMEM_MAX
+def fragment_index(T: int, nh: int, nw: int) -> np.ndarray:
+    """Where each byte of the kernel's A fragments comes from: int64
+    [ceil(T/16), nks, 32, 16], byte 4i+j of lane L's four registers for
+    (M-tile mt, k-step s) is the flat index into needles [T, nh, nw] of its
+    needle byte, or T·nh·nw for a zero byte.
+
+    mma.sync.m16n8k32 with A row-major (PTX ISA, the .u8 fragment layout):
+    register i of lane L = 4g + tq holds row g + 8·(i & 1) — needle
+    16·mt + g + 8·(i & 1) — and k bytes 32s + 4tq + 16·(i >> 1) + j, i.e.
+    k-word w = 8s + tq + 4·(i >> 1), which is needle word (dy, q) =
+    divmod(w, ceil(nw/4)) and pixel dx = 4q + j. Bytes past nw, past the
+    needle's last word and past T are zero."""
+    nks, nw4 = k_steps(nh, nw), -(-nw // 4)
+    mt, s, lane, i, j = np.ix_(np.arange(-(-T // 16)), np.arange(nks), np.arange(32),
+                               np.arange(4), np.arange(4))
+    t = 16 * mt + (lane >> 2) + 8 * (i & 1)
+    w = 8 * s + (lane & 3) + 4 * (i >> 1)
+    dy, dx = w // nw4, 4 * (w % nw4) + j
+    idx = (t * nh + dy) * nw + dx
+    real = (t < T) & (dy < nh) & (dx < nw)
+    return np.where(real, idx, T * nh * nw).reshape(-1, nks, 32, 16)
 
 
-def _needle_words(needles: torch.Tensor) -> torch.Tensor:
-    """[T, nh, nw] u8 -> the kernel's needle-tile layout in device memory,
-    int32 [ceil(T/8), nh, ceil(nw/4), 8]: byte k of word (tile, dy, q, t) is
-    needle[8·tile + t][dy][4q + k], 0 past nw and T."""
-    T, nh, nw = needles.shape
-    nt, nw4 = -(-T // _TT), -(-nw // 4)
-    padded = torch.zeros((nt * _TT, nh, nw4 * 4), dtype=torch.uint8, device=needles.device)
-    padded[:T, :, :nw] = needles
-    tiles = padded.reshape(nt, _TT, nh, nw4, 4).permute(0, 2, 3, 1, 4).contiguous()
-    return tiles.view(torch.int32).reshape(nt, nh, nw4, _TT)
+def pack_needle_fragments(needles: torch.Tensor) -> torch.Tensor:
+    """[T, nh, nw] u8 -> the kernel's A operand, int32 [ceil(T/16), nks, 32,
+    4] on the needles' device: one uint4 fragment a lane for each (M-tile,
+    k-step), laid out by fragment_index. The matcher packs each needle group
+    once (models/ncc.py::DeviceGroup)."""
+    idx = torch.from_numpy(fragment_index(*needles.shape)).to(needles.device)
+    flat = torch.cat([needles.reshape(-1), needles.new_zeros(1)])
+    return flat[idx].view(torch.int32)
 
 
 def ncc_sweep(
@@ -249,10 +260,12 @@ def ncc_sweep(
     threshold: float,
     eps: float = EPS,
     terms: tuple | None = None,
+    afrag: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 (csrc/ncc_sweep.cu) for CUDA tensors, ncc_sweep_reference for CPU
-    tensors; the needles' tier picks the kernel's instance. ``terms``:
-    precomputed sweep_terms (the matcher's device groups carry them)."""
+    tensors; the needles' tier picks the kernel's instance. ``terms`` and
+    ``afrag``: precomputed sweep_terms and pack_needle_fragments of these
+    needles (the matcher's device groups carry them)."""
     if imgs.device.type == "cpu":
         return ncc_sweep_reference(imgs, needles, s_n, s2_n, threshold, eps, terms)
     if imgs.device.type != "cuda":
@@ -275,15 +288,20 @@ def ncc_sweep(
     inv_n, err, c_den, slack = (
         wide_scalars(n, thr_eps) if wide else (float(np.float32(1.0 / n)), 0.0, 0.0, 0.0)
     )
-    nd_words = _needle_words(needles) if wide and not _tile_fits(nh, nw) else None
+    if afrag is None:
+        afrag = pack_needle_fragments(needles)
+    if tuple(afrag.shape) != (-(-T // 16), k_steps(nh, nw), 32, 4) or (
+        afrag.dtype != torch.int32 or not afrag.is_contiguous() or afrag.device != imgs.device
+    ):
+        raise ValueError("ncc_sweep: afrag must be pack_needle_fragments(needles)")
     from focr_tpu_torch.native.build import load
 
     rc = load().focr_ncc_sweep(
-        imgs.data_ptr(), B, H, W, needles.data_ptr(), T, nh, nw,
+        imgs.data_ptr(), B, H, W, afrag.data_ptr(), T, nh, nw,
         sn_n.data_ptr(), rtn.data_ptr(), thr_eps, inv_n,
         mask.data_ptr(), rcnt.data_ptr(),
         torch.cuda.current_stream(imgs.device).cuda_stream,
-        int(wide), nd_words.data_ptr() if nd_words is not None else None, err, c_den, slack,
+        int(wide), err, c_den, slack,
     )
     if rc != 0:
         raise RuntimeError(f"ncc_sweep kernel launch failed: CUDA error {rc}")

@@ -27,6 +27,7 @@ the two. It counts its kernel launches in ``LAUNCHES``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from focr_tpu_torch.ops.ssd import argmin_glyph
@@ -116,6 +117,32 @@ def prop_scan_reference(
     return ids
 
 
+def template_index(G: int, h: int, wbank: int) -> np.ndarray:
+    """Where each byte of the kernel's template words comes from: int64
+    [64, G, kwp, 4], byte j of word m of (phase p, glyph g) is the flat index
+    into templates [G, 64, h, wbank] of column c = 4q + j of row y, (y, q) =
+    divmod(m, ceil(wbank/4)), or G·64·h·wbank (a zero byte) past wbank and
+    past the last row. kwp = h·ceil(wbank/4) rounded up to a multiple of 32:
+    no word straddles two rows, and a warp's lanes read whole 32-word
+    chunks."""
+    wb4 = -(-wbank // 4)
+    kwp = -(-h * wb4 // 32) * 32
+    p, g, m, j = np.ix_(np.arange(PHASES), np.arange(G), np.arange(kwp), np.arange(4))
+    y, c = m // wb4, 4 * (m % wb4) + j
+    idx = ((g * PHASES + p) * h + y) * wbank + c
+    return np.where((y < h) & (c < wbank), idx, G * PHASES * h * wbank)
+
+
+def template_words(templates: torch.Tensor) -> torch.Tensor:
+    """[G, 64, h, wbank] u8 -> the kernel's template words, int32 [64, G,
+    kwp] on the templates' device, laid out by template_index. The decoder
+    lays out each bank once (models/focr_prop.py::PropForward)."""
+    G, _, h, wbank = templates.shape
+    idx = torch.from_numpy(template_index(G, h, wbank)).to(templates.device)
+    flat = torch.cat([templates.reshape(-1), templates.new_zeros(1)])
+    return flat[idx].reshape(PHASES, G, -1).view(torch.int32)
+
+
 def prop_scan(
     strips: torch.Tensor,
     templates: torch.Tensor,
@@ -124,11 +151,13 @@ def prop_scan(
     base: int,
     ox: float,
     n_steps: int,
+    words: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K5 (csrc/focr_prop.cu) for CUDA tensors, prop_scan_reference for CPU
     tensors. On the card: strips and templates contiguous u8, colsq_cum
     int32, advances f32, all on the strips' device; ids is a new tensor
-    there."""
+    there. ``words``: template_words(templates), precomputed (the decoder's
+    forward module carries it)."""
     if strips.device.type == "cpu":
         return prop_scan_reference(strips, templates, colsq_cum, advances, base, ox, n_steps)
     if strips.device.type != "cuda":
@@ -145,8 +174,13 @@ def prop_scan(
         return ids
     from focr_tpu_torch.native.build import load
 
+    tw = template_words(templates) if words is None else words
+    if tw.dtype != torch.int32 or not tw.is_contiguous() or tw.device != strips.device or (
+        tuple(tw.shape[:2]) != (PHASES, G) or tw.shape[2] != -(-h * -(-wbank // 4) // 32) * 32
+    ):
+        raise ValueError("prop_scan: words must be template_words(templates)")
     rc = load().focr_prop_scan(
-        strips.data_ptr(), L, h, crop_w, templates.data_ptr(), colsq_cum.data_ptr(),
+        strips.data_ptr(), L, h, crop_w, tw.data_ptr(), tw.shape[2], colsq_cum.data_ptr(),
         advances.data_ptr(), G, wbank, int(base), float(ox), n_steps, ids.data_ptr(),
         torch.cuda.current_stream(strips.device).cuda_stream,
     )

@@ -33,7 +33,8 @@ def _inputs(B, H, W, T, nh, nw, seed, density):
     rng = np.random.default_rng(seed)
     imgs = ((rng.random((B, H, W)) < density) * rng.integers(0, 256, (B, H, W))).astype(np.uint8)
     needles = rng.integers(0, 256, (T, nh, nw), dtype=np.uint8)
-    needles[0] = 7
+    if T > 1:
+        needles[0] = 7
     for b in range(B):
         for _ in range(5):
             t, y, x = rng.integers(T), rng.integers(0, H - nh), rng.integers(0, W - nw)
@@ -55,6 +56,19 @@ CASES = {  # (B, H, W, T, nh, nw, threshold, seed, density)
     "thr0-13x9": (2, 80, 120, 9, 13, 9, 0.0, 6, 0.3),
     "neg-17x12": (1, 70, 90, 5, 17, 12, -0.4, 7, 0.3),
     "huge-150x150": (1, 330, 300, 3, 150, 150, 0.7, 8, 0.2),
+    # tile edges of the tensor-core sweep: window columns W-nw+1 not a
+    # multiple of 8 or 32, a page narrower than one 8-column N-tile, T
+    # around the 16-needle M-tile, needle widths around the 4-byte k-word
+    "edge-T1-nw1": (2, 30, 45, 1, 5, 1, 0.3, 9, 0.3),
+    "edge-T16-nw4": (2, 40, 70, 16, 7, 4, 0.4, 10, 0.3),
+    "edge-T17-nw5-narrow-page": (2, 35, 9, 17, 4, 5, 0.2, 11, 0.3),
+    "edge-T17-nw17": (2, 50, 300, 17, 5, 17, 0.5, 12, 0.3),
+    "edge-T16-wide": (1, 60, 100, 16, 13, 9, -0.1, 13, 0.3),
+    # groups past one block's 16 M-tiles spread over grid.z: 3 blocks, 2
+    # blocks of the wide tier, and a 28,000-needle group (110 blocks)
+    "many-T600-13x9": (2, 40, 60, 600, 13, 9, 0.3, 14, 0.3),
+    "many-T300-wide": (1, 50, 60, 300, 21, 13, 0.8, 15, 0.3),
+    "many-T28000-13x9": (1, 30, 40, 28000, 13, 9, 0.5, 16, 0.3),
 }
 
 
@@ -162,6 +176,21 @@ def _prop_inputs(case, seed):
             strips = rng.integers(0, 256, strips.shape).astype(np.uint8)
     elif case == "noise":
         strips = rng.integers(0, 256, (40, 12, 608)).astype(np.uint8)
+    elif case.startswith("synthetic"):
+        # G glyphs of h x wbank: G around the kernel's 32-glyph warp groups,
+        # wbank not a multiple of 4, L not a multiple of anything
+        G, h, wbank, L, crop_w = {"synthetic-G1": (1, 5, 7, 5, 90),
+                                  "synthetic-G33": (33, 12, 19, 7, 300),
+                                  "synthetic-G67-wbank6": (67, 4, 6, 13, 200),
+                                  "synthetic-G200": (200, 3, 11, 3, 150)}[case]
+        templates = rng.integers(0, 256, (G, 64, h, wbank)).astype(np.uint8)
+        templates[templates < 150] = 0
+        sq = (templates.astype(np.int64) ** 2).sum(axis=2)
+        colsq = np.zeros((G, 64, wbank + 1), np.int32)
+        colsq[..., 1:] = np.cumsum(sq, axis=-1)
+        adv = rng.uniform(2.5, 9.0, G).astype(np.float32)
+        strips = rng.integers(0, 256, (L, h, crop_w)).astype(np.uint8)
+        return strips, templates, colsq, adv, 3, 0.4, crop_w // 2
     elif case == "dup-glyphs":
         order = np.r_[np.arange(67), [3, 17, 40]]
         templates, colsq, adv = templates[order], colsq[order], adv[order]
@@ -175,7 +204,9 @@ def _prop_inputs(case, seed):
             n_steps)
 
 
-@pytest.mark.parametrize("case", ["corpus-h12", "corpus-h3", "noise", "dup-glyphs", "narrow"])
+@pytest.mark.parametrize("case", ["corpus-h12", "corpus-h3", "noise", "dup-glyphs", "narrow",
+                                  "synthetic-G1", "synthetic-G33", "synthetic-G67-wbank6",
+                                  "synthetic-G200"])
 def test_prop_scan_matches_plain_version(cuda, case):
     *arrays, base, ox, n_steps = _prop_inputs(case, seed=len(case))
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays]

@@ -130,20 +130,22 @@ def test_candidates_hold_focr_tpu_accepts(seed, nh, nw, thr):
 
 @pytest.mark.parametrize("T,nh,nw", [(3, 150, 150), (9, 21, 13), (8, 5, 4)])
 def test_needle_words_layout(T, nh, nw):
-    """The wide instance's device-memory needle tiles hold the words the
-    kernel would stage in shared memory: byte k of word (tile, dy, q, t) is
-    needle[8·tile + t][dy][4q + k], 0 past nw and T."""
+    """The needle words the kernel's A fragments carry, read back word by
+    word: k-word w = dy·ceil(nw/4) + q of needle t holds needle[t][dy][4q + k]
+    in byte k, 0 past nw, past the last word and past T."""
     rng = np.random.default_rng(T)
     needles = rng.integers(0, 256, (T, nh, nw), dtype=np.uint8)
-    words = ncc_kernels._needle_words(torch.from_numpy(needles)).numpy().view(np.uint32)
-    nt, nw4 = -(-T // 8), -(-nw // 4)
-    assert words.shape == (nt, nh, nw4, 8)
-    want = np.zeros_like(words)
-    for t in range(T):
-        for q in range(nw4):
-            for k in range(4):
-                if 4 * q + k < nw:
-                    want[t // 8, :, q, t % 8] |= needles[t, :, 4 * q + k].astype(np.uint32) << 8 * k
-    np.testing.assert_array_equal(words, want)
-    # the 150x150 tile does not fit beside its page band: it is read from device memory
-    assert ncc_kernels._tile_fits(nh, nw) == (nh < 100)
+    frags = ncc_kernels.pack_needle_fragments(torch.from_numpy(needles)).numpy().view(np.uint32)
+    nks, nw4 = ncc_kernels.k_steps(nh, nw), -(-nw // 4)
+    assert frags.shape == (-(-T // 16), nks, 32, 4)
+    # lane 4g + tq, register i: needle 16·mt + g + 8(i & 1), k-word 8s + tq + 4(i >> 1)
+    mt, s, lane, i = np.meshgrid(*map(np.arange, frags.shape), indexing="ij")
+    t = 16 * mt + (lane >> 2) + 8 * (i & 1)
+    w = 8 * s + (lane & 3) + 4 * (i >> 1)
+    want = np.zeros_like(frags)
+    for k in range(4):
+        dy, dx = w // nw4, 4 * (w % nw4) + k
+        real = (t < T) & (dy < nh) & (dx < nw)
+        byte = needles[np.minimum(t, T - 1), np.minimum(dy, nh - 1), np.minimum(dx, nw - 1)]
+        want |= np.where(real, byte, 0).astype(np.uint32) << 8 * k
+    np.testing.assert_array_equal(frags, want)

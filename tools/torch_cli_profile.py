@@ -1,0 +1,269 @@
+"""Where the port's ncc and prop CLIs spend their time on a CUDA card, and
+their pages/s (or K1's time alone) against another checkout of the repo, in
+turns.
+
+    python tools/torch_cli_profile.py profile [--runs N]            # stage tables
+    python tools/torch_cli_profile.py compare OTHER_ROOT [--runs N] # pages/s in turns
+    python tools/torch_cli_profile.py sweep OTHER_ROOT              # K1 ms/page in turns
+
+Both run the CLIs in-process (``main()``) on the 16 pages of the golden
+fixtures (tests/fixtures/torch_{ncc,prop}_golden.npz, written as PGMs), with
+the saved banks (``--needle-bank``, ``--grid-bank``), after one warm-up run.
+
+profile — for each CLI: the wall of N warm runs (default 6); one run under cProfile with
+    the ncc collect pool set to 1 thread (cProfile follows every thread, so a
+    4-thread pool would interleave the stacks), reduced to the cumulative
+    seconds of the stages named in STAGES; one run under torch.profiler,
+    reduced to the device time by kernel and in all (device busy = device
+    time / wall).
+compare — runs ``time`` in a fresh process for OTHER_ROOT, this root, this
+    root and OTHER_ROOT (in that order), each timing N warm runs of each CLI,
+    and prints each process's pages/s. OTHER_ROOT is a checkout of the
+    package (``git archive`` of a commit, or a variant's copy under
+    ``_checkout/``), imported in place of this one.
+sweep — the same turns, each process timing K1 alone at the ncc main path's
+    shapes: the first wave of the ncc fixture, inverted and ink-cropped as the
+    matcher does, against both needle groups (held bit for bit against the
+    plain version first; the best of 5 means of 20 launches, CUDA events).
+    Each process builds its kernels with the register report (stderr).
+
+Every output line is JSON; each names the card (`nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import cProfile
+import io
+import json
+import os
+import pstats
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(HERE, "tests", "fixtures")
+FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSansMono.ttf"
+SANS_FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
+GRID = ["-x", "45", "-y", "39", "-w", "608", "--line-height", "12", "--line-advance", "15"]
+RUNS = int(sys.argv[sys.argv.index("--runs") + 1]) if "--runs" in sys.argv else 6
+# the stages each stage table reports (cumulative seconds of these functions)
+STAGES = {
+    "ncc": ("load_needle_bank", "load_gray", "_sweep_wave", "_collect_page", "_replay_group",
+            "process_hits_text"),
+    "prop": ("load_grid_bank", "load_gray_many_isolated", "decode_pages", "_decode_prop",
+             "prop_scan", "decode_lines"),
+}
+
+
+def _argv(cli: str, paths: list[str]) -> list[str]:
+    if cli == "ncc":
+        return ["-i", *paths, "-f", FONT, "-t", "13", "--x-bits", "2", "--needle-bank",
+                os.path.join(FIXTURES, "torch_ncc_golden.npz")]
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+
+    alphabet = load_grid_bank(os.path.join(FIXTURES, "torch_prop_golden.npz"))[1]["alphabet"]
+    return ["-i", *paths, "-f", SANS_FONT, "-t", "13", "-a", alphabet, *GRID, "--grid-bank",
+            os.path.join(FIXTURES, "torch_prop_golden.npz")]
+
+
+@contextlib.contextmanager
+def _cli(cli: str):
+    """(main, argv, pages) for one CLI on its 16 fixture pages as PGMs."""
+    import numpy as np
+
+    from focr_tpu_torch.io.images import save_gray
+
+    name = "torch_ncc_golden.npz" if cli == "ncc" else "torch_prop_golden.npz"
+    with np.load(os.path.join(FIXTURES, name), allow_pickle=False) as z:
+        pages = z["pages"]
+    if cli == "ncc":
+        from focr_tpu_torch.cli.ncc import main
+    else:
+        from focr_tpu_torch.cli.focr import main
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for k, p in enumerate(pages):
+            paths.append(os.path.join(tmp, f"page{k:02d}.pgm"))
+            save_gray(paths[-1], p)
+        yield main, _argv(cli, paths), len(pages)
+
+
+def _run(main, argv) -> float:
+    import torch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"the CLI exited {rc}")
+    return wall
+
+
+def _card() -> str:
+    from focr_tpu_torch.utils.device import card_label
+
+    return card_label()
+
+
+def time_clis(root: str) -> None:
+    """pages/s of each CLI, with the ncc device stage's seconds per run
+    (``NccMatcher._sweep_wave``, which waits for K1 and K2)."""
+    import torch
+
+    import focr_tpu_torch
+    from focr_tpu_torch.models import ncc as ncc_model
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    sweep_s = []
+    wave = ncc_model.NccMatcher._sweep_wave
+
+    def timed_wave(self, batch):
+        t0 = time.perf_counter()
+        try:
+            return wave(self, batch)
+        finally:
+            sweep_s[-1] += time.perf_counter() - t0
+
+    ncc_model.NccMatcher._sweep_wave = timed_wave
+    for cli in ("ncc", "prop"):
+        with _cli(cli) as (main, argv, n):
+            sweep_s.append(0.0)
+            _run(main, argv)
+            sweep_s.clear()
+            walls = []
+            for _ in range(RUNS):
+                sweep_s.append(0.0)
+                walls.append(_run(main, argv))
+        line = {"root": root, "package": os.path.dirname(focr_tpu_torch.__file__), "cli": cli,
+                "pages_per_s": [n / w for w in walls], "card": _card()}
+        if cli == "ncc":
+            line["sweep_wave_ms"] = [t * 1e3 for t in sweep_s]
+        print(json.dumps(line), flush=True)
+
+
+def time_sweep(root: str) -> None:
+    """K1's ms/page per needle group for the checkout at ``root``."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.fonts.bank import load_needle_bank
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.native import build
+    from focr_tpu_torch.ops import ncc_kernels as K
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    build.build(report=True)
+    fixture = os.path.join(FIXTURES, "torch_ncc_golden.npz")
+    with np.load(fixture, allow_pickle=False) as z:
+        pages = z["pages"][: ncc_model.WAVE]
+    inv = (255 - pages.astype(np.int16)).astype(np.uint8)
+    groups = ncc_model._group_needles(load_needle_bank(fixture)[0])
+    y0, x0, Hc, Wc = ncc_model._ink_crop(inv, *inv.shape[1:], groups)
+    x = torch.from_numpy(np.ascontiguousarray(inv[:, y0 : y0 + Hc, x0 : x0 + Wc])).cuda()
+    ms = {}
+    for g in groups:
+        dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, 0.8, x.device)
+        args = (x, dg.bank, dg.s_n, dg.s2_n, 0.8)
+        mask, rcnt = K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag)
+        mask_r, rcnt_r = K.ncc_sweep_reference(*args, terms=dg.terms)
+        if not (torch.equal(mask, mask_r) and torch.equal(rcnt, rcnt_r)):
+            raise AssertionError(f"K1 differs from its plain version ({g.nw}x{g.nh})")
+        best = float("inf")
+        for _ in range(5):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(20):
+                K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag)
+            e1.record()
+            torch.cuda.synchronize()
+            best = min(best, e0.elapsed_time(e1) / 20 / len(pages))
+        ms[f"{g.nw}x{g.nh}"] = best
+    print(json.dumps({"root": root, "k1_ms_per_page": ms, "total": sum(ms.values()),
+                      "card": _card()}), flush=True)
+
+
+def profile() -> None:
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from focr_tpu_torch.models import ncc as ncc_model
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    for cli in ("ncc", "prop"):
+        with _cli(cli) as (main, argv, n):
+            _run(main, argv)
+            walls = [_run(main, argv) for _ in range(RUNS)]
+            threads = ncc_model.COLLECT_THREADS
+            ncc_model.COLLECT_THREADS = 1
+            try:
+                prof = cProfile.Profile()
+                prof.enable()
+                wall_cp = _run(main, argv)
+                prof.disable()
+            finally:
+                ncc_model.COLLECT_THREADS = threads
+            stats = pstats.Stats(prof)
+            stages = {name: 0.0 for name in STAGES[cli]}
+            for (_, _, func), (_, _, _, cum, _) in stats.stats.items():
+                if func in stages:
+                    stages[func] += cum
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                          acc_events=True) as tp:
+                wall_tp = _run(main, argv)
+            dev = {}
+            for ev in tp.key_averages():
+                t = getattr(ev, "device_time_total", None)
+                if t is None:
+                    t = ev.cuda_time_total
+                if t and ev.device_type == torch.autograd.DeviceType.CUDA:
+                    dev[ev.key] = dev.get(ev.key, 0.0) + t / 1e3
+            busy = sum(dev.values())
+        print(json.dumps({
+            "cli": cli, "pages": n, "pages_per_s": [n / w for w in walls],
+            "cprofile_wall_s": wall_cp, "stages_cum_s": stages,
+            "torch_profiler_wall_ms": wall_tp * 1e3, "device_ms": busy,
+            "device_busy": busy / (wall_tp * 1e3),
+            "device_ms_by_kernel": dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8]),
+            "card": _card()}), flush=True)
+
+
+def compare(other: str, mode: str) -> None:
+    me = os.path.abspath(__file__)
+    for root in (other, HERE, HERE, other):
+        res = subprocess.run([sys.executable, me, mode, "--root", root, "--runs", str(RUNS)],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"timing {root} failed: {res.stderr[-2000:]}")
+        sys.stdout.write(res.stdout)
+        sys.stdout.flush()
+        sys.stderr.write(res.stderr)
+
+
+def main() -> int:
+    mode = sys.argv[1] if len(sys.argv) > 1 else "profile"
+    if mode in ("time", "sweep-time"):
+        root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1] if "--root" in sys.argv
+                               else HERE)
+        sys.path.insert(0, root)
+        (time_clis if mode == "time" else time_sweep)(root)
+    elif mode in ("compare", "sweep"):
+        compare(os.path.abspath(sys.argv[2]), "time" if mode == "compare" else "sweep-time")
+    else:
+        sys.path.insert(0, HERE)
+        profile()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
