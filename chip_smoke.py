@@ -23,27 +23,34 @@ Phases, each of which raises on failure:
 
   1. device  — the card's name and power limit; CUDA must be available
   2. build   — nvcc builds csrc/*.cu and g++ builds csrc/ncc_host.cpp (the
-               ncc host library) into focr_tpu_torch/_build/
+               ncc host library) into focr_tpu_torch/_build/; both then load
+               in a process with no compiler on PATH
   3. kernels — on the first 8-page wave, inverted and ink-cropped as the
-               matcher does: K1 (ncc_sweep) and K2 (compact_hits) against
-               their plain PyTorch versions on the card, exact (tolerance 0),
-               then timed with CUDA events, beside cuDNN's conv2d in TF32 on
-               the same wave and needles (a yardstick of the correlation
-               alone; the port never calls it)
+               matcher does: K1 (ncc_sweep) and K2 (compact_hits: its count
+               kernel, one wait, its emit kernel; the count kernel also alone)
+               against their plain PyTorch versions on the card, exact
+               (tolerance 0), then timed with CUDA events (K2 as the main
+               path runs it, and each of its kernels alone), beside cuDNN's
+               conv2d in TF32 on the same wave and needles (a yardstick of the
+               correlation alone; the port never calls it)
   4. golden  — NccMatcher on the card decodes the fixture's two golden pages
                to focr_tpu's lines, through both kernels
   5. cli     — the ncc CLI on 16 pages: once in-process, with the launch
-               counts and the host library's call counts reset just before and
-               read just after (the counted main path: K1, K2, the native
-               replay and the native post-processing scan), once as
+               counts, the host library's call counts and the device stage's
+               host waits reset just before and read just after (the counted
+               main path: K1, K2's two kernels, the native replay and the
+               native post-processing scan; 3 waits a wave of two size
+               groups), once as
                `python -m focr_tpu_torch.cli.ncc` (exit 0, same stdout); every
                page's lines are checked against its text
   6. focr-kernels — K4 (ssd_argmin) against its plain PyTorch version on the
-               card, exact (tolerance 0 on ids and white), on a 16-page wave of
-               the corpus cropped as GridDecoder crops it (both row groups),
-               seeded noise pages (near-ties), an alphabet with duplicated
-               characters (exact ties) and a narrow strip whose windows hang
-               past its width; then both timed with CUDA events
+               card, exact (tolerance 0 on ids and white): its tensor-core
+               instance on a 16-page wave of the corpus cropped as
+               GridDecoder crops it (both row groups), seeded noise pages
+               (near-ties), an alphabet with duplicated characters (exact
+               ties) and a narrow strip whose windows hang past its width; its
+               int64 instance on a 1x34000 window; then the main path's
+               instance and the plain version timed with CUDA events
   7. focr-golden — GridDecoder on the card decodes the 16 pages, and one
                page streamed in row chunks as the CLI does for a single
                image, to focr_tpu's lines, through K4
@@ -79,7 +86,10 @@ Phases, each of which raises on failure:
                (same winners), each timed per page; the matcher's 4-thread
                collect pool against serial collection on the 16 pages; the
                CLI with --engine native on the two golden pages, whose lines
-               must equal focr_tpu's
+               must equal focr_tpu's; the page reader with Pillow blocked from
+               import: one corpus page as P1-P6 and as PNG (all five filters,
+               16-bit RGB with Adam7, and as save_gray writes it) must decode
+               to its PGM, and a PGM and a PNG page's read times
 
 Then a JSON line with the conv2d yardstick, one JSON line of the kernels
 (with the host tier's numbers under "host_native"), the card line, and last
@@ -90,7 +100,10 @@ larger of its operations (2 per multiply-add, over the ink crop for K1 and
 the steps taken for K5) over the H100's int8 tensor-core peak and its bytes
 (inputs read once, outputs written once) over the memory rate — with
 bound_by, and library_ms (null: no single PyTorch call computes any of these
-functions). K1's entry carries its wide instance's numbers as wide_*.
+functions). K1's entry carries its wide instance's numbers as wide_*; K2's
+(whose bytes are the mask rows that hold candidates, the row counts and its
+outputs) its count kernel's launches, each of its two kernels' ms alone, and
+the device stage's host waits a wave; K4's the instance the main path takes.
 """
 
 from __future__ import annotations
@@ -190,9 +203,11 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
     B = len(pages)
 
     # 6. focr-kernels: K4 against its plain version on four kinds of input
-    def check(label, strips, templates, tsq, wx0, forbidden=()):
+    # (the tensor-core instance) and on a wide window (the int64 instance)
+    def check(label, strips, templates, tsq, wx0, forbidden=(), want="mma"):
         args = [torch.as_tensor(np.ascontiguousarray(a)).to(dev)
                 for a in (strips, templates, tsq, wx0)]
+        instance = S.ssd_plan(strips.shape[-2], strips.shape[-1], templates.shape[-1])[0]
         ids, white = S.ssd_argmin(*args)
         ids_r, white_r = S.ssd_argmin_reference(*args)
         torch.cuda.synchronize()
@@ -200,13 +215,14 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
                                                       white_r.to(torch.int32)))
         bad = [g for g in forbidden if bool((ids == g).any())]
         log(f"[focr-kernels] {label}: strips {tuple(strips.shape)}, {templates.shape[1]} glyphs, "
-            f"K4 vs plain max|err| {e}, {int(white.sum())} white strips")
-        if e or bad:
-            raise AssertionError(f"K4 mismatch on {label}: max|err| {e}, duplicate ids {bad}")
+            f"{instance} instance, K4 vs plain max|err| {e}, {int(white.sum())} white strips")
+        if e or bad or instance != want:
+            raise AssertionError(f"K4 mismatch on {label}: max|err| {e}, duplicate ids {bad}, "
+                                 f"instance {instance}")
         return e, args
 
     err, ms, plain_ms, ops, moved = 0, 0.0, 0.0, 0, 0
-    for (grp, _), bank in zip(dec.groups, dec.banks):
+    for (grp, fwd), bank in zip(dec.groups, dec.banks):
         strips = focr_model.crop_strips(pages, grp.ys, grp.crop_h, dec.x0, dec.crop_w)
         e, args = check(f"corpus wave, row group h={grp.crop_h} ({len(grp.ys)} rows)", strips,
                         bank.templates, bank.tsq.astype(np.int64), bank.wx0)
@@ -216,7 +232,8 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
         C, G, _, win_w = args[1].shape
         ops += 2 * Bs * R * C * G * h * win_w
         moved += nbytes(*args, *S.ssd_argmin(*args))
-        k_ms = cuda_ms(lambda: S.ssd_argmin(*args), 20) / B
+        # as the decoder calls it: the bank's fragments packed once
+        k_ms = cuda_ms(lambda: S.ssd_argmin(*args, bfrag=fwd.bfrag), 20) / B
         p_ms = cuda_ms(lambda: S.ssd_argmin_reference(*args), 5) / B
         ms, plain_ms = ms + k_ms, plain_ms + p_ms
         log(f"[focr-kernels] row group h={grp.crop_h} ms/page: K4 {k_ms:.5f} (plain {p_ms:.5f})")
@@ -241,6 +258,13 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
     narrow = rng.integers(0, 256, (4, 6, 12, 20), dtype=np.uint8)
     err = max(err, check("narrow strip, windows hang past crop_w", narrow,
                          bank.templates[:4], tsq[:4], np.array([0, 7, 14, 19], np.int32))[0])
+    # a window whose dot may pass 2^31 (n = 34000 >= 33026) takes the int64 instance
+    wide_t = rng.integers(0, 256, (2, 33, 1, 34000), dtype=np.uint8)
+    wide_t[wide_t < 140] = 0
+    err = max(err, check("wide window 1x34000 (n*65025 >= 2^31)",
+                         rng.integers(0, 256, (1, 3, 1, 40000), dtype=np.uint8), wide_t,
+                         (wide_t.astype(np.int64) ** 2).sum(axis=(2, 3)),
+                         np.array([0, 5000], np.int32), want="int64")[0])
 
     # 7. focr-golden: GridDecoder on the card reproduces focr_tpu's lines
     S.reset_launches()
@@ -302,7 +326,7 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
         f"card {card}")
     bound_ms, bound_by = bound(ops / B, moved / B)
     entry = {"name": "ssd_argmin", "route": "cuda", "source": "focr_tpu_torch/csrc/focr_ssd.cu",
-             "replaces": "focr_tpu/models/focr.py:60", "launches": launches,
+             "replaces": "focr_tpu/models/focr.py:60", "instance": "mma", "launches": launches,
              "launches_per_page": launches / B, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": None}
@@ -509,6 +533,112 @@ def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
     return entry, wide, B / wall, B / sub_wall
 
 
+def _png(samples, ctype: int, depth: int, filters, interlace: bool = False) -> bytes:
+    """A PNG of samples [H, W, ch] (8 or 16 bits), row r of each pass with
+    filter filters[r % len(filters)]: the encoder side of PNG §9, for reading
+    back through the port's decoder."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind, body):
+        return len(body).to_bytes(4, "big") + kind + body + zlib.crc32(kind + body).to_bytes(4, "big")
+
+    H, W, ch = samples.shape
+    bpp = ch * depth // 8
+    stream = b""
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+              (0, 1, 1, 2)) if interlace else ((0, 0, 1, 1),)
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        rows = sub.astype(">u2" if depth == 16 else np.uint8).reshape(len(sub), -1)
+        rows = rows.view(np.uint8).astype(np.int64)
+        prev = np.zeros(rows.shape[1], np.int64)
+        for r, x in enumerate(rows):
+            ft = filters[r % len(filters)]
+            a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
+            c = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+            p = a + prev - c
+            paeth = np.where((abs(p - a) <= abs(p - prev)) & (abs(p - a) <= abs(p - c)), a,
+                             np.where(abs(p - prev) <= abs(p - c), prev, c))
+            pred = (0 * x, a, prev, (a + prev) >> 1, paeth)[ft]
+            stream += bytes([ft]) + ((x - pred) & 0xFF).astype(np.uint8).tobytes()
+            prev = x
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0, 0, int(interlace)))
+            + chunk(b"IDAT", zlib.compress(stream)) + chunk(b"IEND", b""))
+
+
+def page_formats_phase(page) -> dict:
+    """Phase 12's page reader check: one corpus page written in every format
+    the port reads itself, read back with Pillow blocked from import (the
+    card's machine has none): each decode must equal the PGM of the same
+    page (a 1-bit format: of the page thresholded at 128). Returns the read
+    times of one PGM and one PNG page (median ms)."""
+    import numpy as np
+
+    from focr_tpu_torch.io import images
+
+    H, W = page.shape
+    ink = np.where(page < 128, 0, 255).astype(np.uint8)
+    v = page.astype(np.int64)
+    bits = (ink == 0).astype(np.uint8)
+    rgb = np.repeat(page[..., None], 3, axis=2)
+    files = {  # name: (bytes, the page its decode must equal)
+        "P1.pbm": (b"P1\n%d %d\n" % (W, H) + "\n".join(
+            "".join(map(str, r)) for r in bits).encode(), ink),
+        "P2.pgm": (b"P2\n# plain\n%d %d\n255\n" % (W, H) + "\n".join(
+            " ".join(map(str, r)) for r in page).encode(), page),
+        "P3.ppm": (b"P3\n%d %d\n255\n" % (W, H) + " ".join(map(str, rgb.reshape(-1))).encode(),
+                   page),
+        "P4.pbm": (b"P4\n%d %d\n" % (W, H) + np.packbits(bits, axis=1).tobytes(), ink),
+        "P5-16bit.pgm": (b"P5\n%d %d\n65535\n" % (W, H) + (v * 257).astype(">u2").tobytes(),
+                         page),
+        "P6.ppm": (b"P6\n%d %d\n255\n" % (W, H) + rgb.tobytes(), page),
+        "gray8-filters.png": (_png(page[..., None], 0, 8, (0, 1, 2, 3, 4)), page),
+        "rgb16-adam7.png": (_png(rgb.astype(np.int64) * 257, 2, 16, (4, 3, 1, 2), True), page),
+    }
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        images.save_gray(os.path.join(tmp, "page.pgm"), page)
+        images.save_gray(os.path.join(tmp, "saved.png"), page)
+        files["saved.png"] = (open(os.path.join(tmp, "saved.png"), "rb").read(), page)
+        saved = sys.modules.get("PIL", 0)
+        sys.modules["PIL"] = None  # Pillow absent, as on the card's machine
+        try:
+            base = images.load_gray(os.path.join(tmp, "page.pgm"))
+            if not np.array_equal(base, page):
+                raise AssertionError("page reader: the PGM does not read back")
+            for name, (data, want) in files.items():
+                path = os.path.join(tmp, name)
+                with open(path, "wb") as f:
+                    f.write(data)
+                if not np.array_equal(images.load_gray(path), want):
+                    raise AssertionError(f"page reader: {name} differs from the PGM of the page")
+            for name in ("page.pgm", "gray8-filters.png", "saved.png"):
+                path = os.path.join(tmp, name)
+                ts = []
+                for _ in range(15):
+                    t0 = time.perf_counter()
+                    images.load_gray(path)
+                    ts.append(time.perf_counter() - t0)
+                timings[name] = sorted(ts)[len(ts) // 2] * 1e3
+        finally:
+            if saved == 0:
+                del sys.modules["PIL"]
+            else:
+                sys.modules["PIL"] = saved
+    log(f"[host-native] page reader without Pillow: {', '.join(files)} of one {W}x{H} page "
+        f"equal its PGM; read ms (median of 15): PGM {timings['page.pgm']:.3f}, PNG with all "
+        f"five filters {timings['gray8-filters.png']:.3f}, PNG as save_gray writes it "
+        f"{timings['saved.png']:.3f}")
+    return {"read_ms_pgm": timings["page.pgm"], "read_ms_png_filtered":
+            timings["gray8-filters.png"], "read_ms_png_unfiltered": timings["saved.png"]}
+
+
 def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
     """Phase 12: the ncc host library (csrc/ncc_host.cpp, built in phase 2)
     on the card's host. Returns its numbers for the JSON line."""
@@ -621,11 +751,12 @@ def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
         raise AssertionError("--engine native did not call the host search")
     log(f"[host-native] --engine native on the {len(golden)} golden pages: lines identical to "
         f"focr_tpu's; {native_s:.3f} s/page, {calls} search_many calls")
+    reads = page_formats_phase(pages[0])
     return {"replay_ms_per_page": replay_ms, "replay_plain_ms_per_page": replay_plain_ms,
             "post_ms_per_page": post_ms, "post_plain_ms_per_page": post_plain_ms,
             "post_text_ms_per_page": text_ms, "collect_pool_s": times["pool"],
             "collect_serial_s": times["serial"], "engine_native_s_per_page": native_s,
-            "candidates_per_page": n_cand / B}
+            "candidates_per_page": n_cand / B, **reads}
 
 
 def main() -> int:
@@ -658,6 +789,19 @@ def main() -> int:
     }
     log(f"[build] {host_build['compiler']}, {' '.join(build.HOST_FLAGS)}, + load "
         f"{host_build['host_build_s']:.1f} s: {build.host_library_path()}")
+    # the built libraries load in a process with no compiler on PATH
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    with tempfile.TemporaryDirectory() as empty:
+        env["PATH"] = empty
+        res = subprocess.run(
+            [sys.executable, "-c", "from focr_tpu_torch.native import build; build.load(); "
+             "build.load_host(); print(build.library_path(), build.host_library_path())"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    if res.returncode != 0 or res.stdout.split() != [build.library_path(),
+                                                     build.host_library_path()]:
+        raise AssertionError(f"the built libraries did not load without the compilers: "
+                             f"{res.stderr[-2000:]}")
+    log("[build] both libraries load in a process with no compiler on PATH")
 
     from focr_tpu_torch.fonts.bank import load_needle_bank
     from focr_tpu_torch.io.images import save_gray
@@ -687,6 +831,7 @@ def main() -> int:
     plain_ms = {"ncc_sweep": 0.0, "compact_hits": 0.0}
     ops = {"ncc_sweep": 0, "compact_hits": 0}  # K2 only moves bytes
     moved = {"ncc_sweep": 0, "compact_hits": 0}
+    k2_parts = {"count_ms": 0.0, "emit_ms": 0.0}
     conv_ms = 0.0
     for g in groups:
         dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, THRESHOLD, dev)
@@ -697,20 +842,27 @@ def main() -> int:
         e1 = max(max_abs_err(mask, mask_r), max_abs_err(rcnt, rcnt_r))
         out = K.compact_hits(mask, rcnt)
         out_r = K.compact_hits_reference(mask, rcnt)
+        row_off, head = K.compact_counts(rcnt)
+        row_off_r, head_r = K.compact_counts_reference(rcnt)
         torch.cuda.synchronize()
         e2 = max(max_abs_err(a, b) for a, b in zip(out, out_r))
+        e_count = max(max_abs_err(row_off, row_off_r), max_abs_err(head, head_r))
         n_cand = int(out[3].sum())
         log(f"[kernels] group {g.nw}x{g.nh} T={len(g.needle_ids)}: K1 vs plain max|err| {e1}, "
-            f"K2 vs plain max|err| {e2}, {n_cand} candidates, {int(rcnt.sum())} mask bits")
-        if e1 or e2 or n_cand == 0:
-            raise AssertionError(f"kernel mismatch in group {g.nw}x{g.nh}: K1 {e1}, K2 {e2}")
+            f"K2 vs plain max|err| {e2} (its count kernel: {e_count}), {n_cand} candidates, "
+            f"{int(rcnt.sum())} mask bits")
+        if e1 or e2 or e_count or n_cand == 0:
+            raise AssertionError(f"kernel mismatch in group {g.nw}x{g.nh}: K1 {e1}, K2 {e2}, "
+                                 f"K2 count {e_count}")
         err["ncc_sweep"] = max(err["ncc_sweep"], e1)
-        err["compact_hits"] = max(err["compact_hits"], e2)
+        err["compact_hits"] = max(err["compact_hits"], e2, e_count)
         # every window of the ink crop against every needle: nh x nw multiply-adds
         T, nh, nw = dg.bank.shape
         ops["ncc_sweep"] += 2 * B * (Hc - nh + 1) * (Wc - nw + 1) * T * nh * nw
         moved["ncc_sweep"] += nbytes(inv_dev, dg.bank, *dg.terms[:2], mask, rcnt)
-        moved["compact_hits"] += nbytes(mask, rcnt, *out)
+        # K2 needs the mask rows that hold candidates, the row counts, its outputs
+        moved["compact_hits"] += (int((rcnt > 0).sum()) * mask.shape[-1] * 4
+                                  + nbytes(rcnt, *out))
         # the yardstick of the correlation alone: cuDNN's conv2d in TF32 (0..255
         # and their products are exact there, sums stay below 2^24); the port
         # never calls it
@@ -727,15 +879,22 @@ def main() -> int:
             ("ncc_sweep", False): cuda_ms(
                 lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag), 10),
             ("ncc_sweep", True): cuda_ms(lambda: K.ncc_sweep_reference(*args, terms=dg.terms), 3),
+            # K2 as the main path runs it: count, one wait for the total, emit
             ("compact_hits", False): cuda_ms(lambda: K.compact_hits(mask, rcnt), 10),
             ("compact_hits", True): cuda_ms(lambda: K.compact_hits_reference(mask, rcnt), 3),
         }
+        total = int(out[1][-1])
+        count_ms = cuda_ms(lambda: K.compact_counts(rcnt), 20)
+        emit_ms = cuda_ms(lambda: K.compact_emit(mask, rcnt, row_off, total), 20)
+        k2_parts["count_ms"] += count_ms / B
+        k2_parts["emit_ms"] += emit_ms / B
         for (name, plain), t in ts.items():
             (plain_ms if plain else ms)[name] += t / B
         log(f"[kernels] group {g.nw}x{g.nh} ms/page: K1 {ts['ncc_sweep', False] / B:.4f} "
             f"(plain {ts['ncc_sweep', True] / B:.4f}, conv2d TF32 correlation alone "
-            f"{t_conv / B:.4f}), K2 {ts['compact_hits', False] / B:.4f} "
-            f"(plain {ts['compact_hits', True] / B:.4f})")
+            f"{t_conv / B:.4f}), K2 count + wait + emit {ts['compact_hits', False] / B:.4f} "
+            f"(count alone {count_ms / B:.5f}, emit alone {emit_ms / B:.5f}; plain "
+            f"{ts['compact_hits', True] / B:.4f})")
     bounds = {k: bound(ops[k] / B, moved[k] / B) for k in ops}
 
     # 4. golden: the matcher on the card reproduces focr_tpu's lines
@@ -789,15 +948,23 @@ def main() -> int:
         buf = io.StringIO()
         K.reset_launches()
         ncc_cpu.reset_native_calls()
+        ncc_model.reset_host_waits()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = ncc_main(argv)
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
+        waits = ncc_model.HOST_WAITS
         native_calls = {k: ncc_cpu.NATIVE_CALLS[k] for k in ("replay_group", "post_sort_winners")}
         if rc != 0 or not all(launches.values()) or not all(native_calls.values()):
             raise AssertionError(f"in-process CLI: rc {rc}, launches {launches}, host library "
                                  f"calls {native_calls}")
+        # a canonical wave: two size groups, one wait for each group's counts
+        # and one for every group's positions
+        n_waves = -(-len(pages) // ncc_model.WAVE)
+        if waits != 3 * n_waves:
+            raise AssertionError(f"the ncc device stage waited {waits} times in {n_waves} "
+                                 "waves, not 3 a wave")
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-m", "focr_tpu_torch.cli.ncc", *argv],
@@ -827,7 +994,8 @@ def main() -> int:
     log(f"[cli] exit 0; {len(pages)} pages, {len(out_lines)} lines (golden pages identical to "
         f"focr_tpu's, every page's text decoded); in-process {len(pages) / wall:.2f} pages/s "
         f"({wall:.2f} s), subprocess {len(pages) / sub_wall:.2f} pages/s ({sub_wall:.2f} s "
-        f"incl. start-up); launches {launches}; host library calls {native_calls}; card {card}")
+        f"incl. start-up); launches {launches}; host waits {waits} ({waits / n_waves:g} a wave); "
+        f"host library calls {native_calls}; card {card}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"focr_tpu_torch/csrc/{src}",
@@ -840,6 +1008,10 @@ def main() -> int:
             ("compact_hits", "ncc_compact.cu", "focr_tpu/ops/pallas_ncc.py:436"),
         )
     ]
+    # K2's entry: count + wait + emit; its count kernel's own launches and
+    # each kernel's time alone beside it
+    kernels[1].update(k2_parts, count_launches=launches["compact_count"],
+                      host_waits_per_wave=waits / n_waves)
 
     # 6-8. the focr slice
     k4, focr_pps, focr_sub_pps = focr_phases(dev, card)

@@ -14,7 +14,8 @@ proportional greedy decoder) and `ncc` (the template matcher).
   native/    nvcc build + ctypes binding of csrc/
   models/    the focr grid and proportional decoders, the ncc matcher and hit
              post-processing
-  io/        page I/O (PGM/PPM in NumPy), page buckets, synthetic pages
+  io/        page I/O (PNM and PNG in NumPy and zlib), page buckets, synthetic
+             pages
   cli/       the focr and ncc command lines
   oracle/    the NumPy focr and ncc oracles
   utils/     device selection

@@ -3,7 +3,8 @@
 // native/build.py::build_host, bound with ctypes by native/ncc_cpu.py).
 //
 // Counterpart of focr_tpu/native/ncc_kernel.cpp, with the same five C entry
-// points and the same semantics. This is host code, not a device kernel: the
+// points and the same semantics, and one more for the page reader
+// (focr_png_unfilter). This is host code, not a device kernel: the
 // matcher's device stage (K1 sweep + K2 compaction) returns candidate
 // positions, and focr_ncc_replay_pos_u8 decides each of them exactly here.
 //
@@ -24,6 +25,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <limits>
 #include <vector>
 
@@ -398,6 +400,58 @@ int64_t focr_post_sort_winners(
         i = j;
     }
     return nr;
+}
+
+// PNG row unfiltering (PNG §9), for io/images.py's page reader: ``in`` holds
+// ``rows`` rows of 1 + stride bytes, each its filter type (0 None, 1 Sub,
+// 2 Up, 3 Average, 4 Paeth) and its filtered bytes; ``out`` gets rows x
+// stride reconstructed bytes. bpp is the filter's byte distance to the left
+// neighbour (bytes a pixel, at least 1); the row above the first is zeros.
+// Average and Paeth read the byte just reconstructed to their left, which is
+// why this runs here and not in NumPy (io/images.py::unfilter_reference is
+// the plain version). Returns -1, or the first row whose filter type is not
+// 0-4.
+int64_t focr_png_unfilter(const uint8_t* in, int64_t rows, int64_t stride, int64_t bpp,
+                          uint8_t* out) {
+    for (int64_t y = 0; y < rows; ++y) {
+        const uint8_t* s = in + y * (stride + 1) + 1;
+        uint8_t* o = out + y * stride;
+        const uint8_t* p = y ? o - stride : nullptr;
+        switch (in[y * (stride + 1)]) {
+        case 0:
+            std::copy(s, s + stride, o);
+            break;
+        case 1:
+            for (int64_t x = 0; x < stride; ++x)
+                o[x] = static_cast<uint8_t>(s[x] + (x >= bpp ? o[x - bpp] : 0));
+            break;
+        case 2:
+            for (int64_t x = 0; x < stride; ++x)
+                o[x] = static_cast<uint8_t>(s[x] + (p ? p[x] : 0));
+            break;
+        case 3:
+            for (int64_t x = 0; x < stride; ++x) {
+                const int a = x >= bpp ? o[x - bpp] : 0;
+                const int b = p ? p[x] : 0;
+                o[x] = static_cast<uint8_t>(s[x] + ((a + b) >> 1));
+            }
+            break;
+        case 4:
+            for (int64_t x = 0; x < stride; ++x) {
+                const int a = x >= bpp ? o[x - bpp] : 0;
+                const int b = p ? p[x] : 0;
+                const int c = p && x >= bpp ? p[x - bpp] : 0;
+                const int pe = a + b - c;
+                const int pa = std::abs(pe - a), pb = std::abs(pe - b), pc = std::abs(pe - c);
+                const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                o[x] = static_cast<uint8_t>(s[x] + pred);
+            }
+            break;
+        default:
+            return y;
+        }
+    }
+    return -1;
 }
 
 }  // extern "C"

@@ -34,7 +34,7 @@ from focr_tpu_torch.fonts.ft import Face
 from focr_tpu_torch.io.images import bucket_pages
 from focr_tpu_torch.models.focr_prop import PropDecoder
 from focr_tpu_torch.models.types import DecodedLine, DecodeOptions, RenderOptions
-from focr_tpu_torch.ops.ssd_kernels import ssd_argmin
+from focr_tpu_torch.ops.ssd_kernels import pack_template_fragments, ssd_argmin, ssd_plan
 from focr_tpu_torch.oracle import focr_oracle
 from focr_tpu_torch.utils.device import resolve_device
 
@@ -64,19 +64,24 @@ def _row_groups(dopts: DecodeOptions, H: int) -> list[_RowGroup]:
 class StripForward(torch.nn.Module):
     """[B, R, crop_h, crop_w] u8 strips -> (ids int32 [B, R, C], white bool
     [B, R]) for one row group: make_strip_forward (focr_tpu/models/focr.py
-    :60-80) as a module whose buffers are the bank on ``device``."""
+    :60-80) as a module whose buffers are the bank on ``device``, with the
+    templates also packed once in K4's tensor-core fragment order where the
+    bank's shape takes that instance (ssd_plan)."""
 
     def __init__(self, bank: GridBank, device: torch.device):
         super().__init__()
         if (bank.wx0 < 0).any():
             raise ValueError("grid bank: window starts must be >= 0")
-        templates = np.ascontiguousarray(bank.templates)
-        self.register_buffer("templates", torch.from_numpy(templates).to(device))
+        templates = torch.from_numpy(np.ascontiguousarray(bank.templates))
+        self.register_buffer("templates", templates.to(device))
         self.register_buffer("tsq", torch.from_numpy(bank.tsq.astype(np.int64)).to(device))
         self.register_buffer("wx0", torch.from_numpy(bank.wx0.astype(np.int32)).to(device))
+        mma = ssd_plan(bank.crop_h, bank.crop_w, templates.shape[3])[0] == "mma"
+        self.register_buffer("bfrag", pack_template_fragments(templates).to(device) if mma
+                             else None)
 
     def forward(self, strips: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return ssd_argmin(strips, self.templates, self.tsq, self.wx0)
+        return ssd_argmin(strips, self.templates, self.tsq, self.wx0, bfrag=self.bfrag)
 
 
 def crop_strips(

@@ -3,8 +3,9 @@
 Counterpart of focr_tpu/models/ncc.py. Per wave of same-shape pages:
 
   invert -> ink-bbox crop (_ink_crop) -> upload -> per needle-size group:
-  K1 ncc_sweep (candidate bitmask + row counts) -> K2 compact_hits
-  (positions in scan order, sized by the exact count) -> one fetch -> per
+  K1 ncc_sweep (candidate bitmask + row counts) -> K2's count kernel -> one
+  wait for the group's counts -> K2's emit kernel (positions in scan order,
+  sized by the exact count) -> one fetch of every group's positions -> per
   page, on a pool of 4 collect threads: crop -> full-page remap, exact f64
   replay in the C++ host library (native/ncc_cpu.py::replay_group, which
   releases the GIL), MAX_MATCHES scan cap (ncc.cpp:222-229) -> hits in
@@ -38,15 +39,24 @@ from focr_tpu_torch.models.types import MAX_MATCHES, BoxSize, MatchWithLetter, R
 from focr_tpu_torch.native import ncc_cpu
 from focr_tpu_torch.ops.ncc import word_stride
 from focr_tpu_torch.ops.ncc_kernels import (
-    compact_hits,
+    compact_counts,
+    compact_emit,
     ncc_sweep,
     pack_needle_fragments,
+    split_counts,
     sweep_terms,
+    to_host,
 )
 from focr_tpu_torch.utils.device import resolve_device
 
 WAVE = 8  # pages per device wave
 COLLECT_THREADS = 4  # pages of a wave replayed at once (focr_tpu/models/ncc.py:552)
+HOST_WAITS = 0  # times the device stage waited on the card (_sweep_wave)
+
+
+def reset_host_waits() -> None:
+    global HOST_WAITS
+    HOST_WAITS = 0
 
 _EMPTY = (
     np.zeros(0, np.int64),
@@ -353,15 +363,20 @@ class NccMatcher:
 
     def _sweep_wave(self, batch: list[np.ndarray]) -> list[tuple]:
         """Device stage for one wave: per page shape, invert, crop to the
-        wave's ink bbox, upload once, sweep + compact every size group, and
-        fetch the positions. Returns per page (page, inverted page, plan,
-        start time, crop) with plan = [(group, "empty" | "sweep",
-        (crop-local positions i32, per-needle counts i32))]."""
+        wave's ink bbox, upload once; per size group K1, K2's count kernel,
+        one wait for the group's counts (they size its output), K2's emit
+        kernel; then one wait for every group's positions. A wave with G
+        swept groups waits G + 1 times (HOST_WAITS). Returns per page (page,
+        inverted page, plan, start time, crop) with plan = [(group, "empty" |
+        "sweep", (crop-local positions i32, per-needle counts i32))]."""
+        global HOST_WAITS
         t0 = time.perf_counter()
         by_shape: dict[tuple[int, int], list[int]] = {}
         for i, p in enumerate(batch):
             by_shape.setdefault(p.shape, []).append(i)
         per_page: list = [None] * len(batch)
+        swept: list[tuple] = []  # (plans, slot, grp, off, hcnt) of each swept group
+        pos_dev: list[torch.Tensor] = []
         for (H, W), idxs in by_shape.items():
             inv = np.empty((len(idxs), H, W), np.uint8)
             for k, i in enumerate(idxs):
@@ -391,12 +406,23 @@ class NccMatcher:
                         inv_dev, dg.bank, dg.s_n, dg.s2_n, self.threshold, terms=dg.terms,
                         afrag=dg.afrag,
                     )
-                    pos, off, hcnt, _ = compact_hits(mask, rcnt)
-                    pos, off, hcnt = pos.cpu().numpy(), off.cpu().numpy(), hcnt.cpu().numpy()
-                    for k, pp in enumerate(plans):
-                        pp.append((grp, "sweep", (pos[off[k] : off[k + 1]], hcnt[k])))
+                    row_off, head = compact_counts(rcnt)
+                    HOST_WAITS += 1
+                    off, hcnt, _ = (t.numpy() for t in split_counts(
+                        to_host([head])[0], len(idxs), len(grp.needle_ids)))
+                    pos_dev.append(compact_emit(mask, rcnt, row_off, int(off[-1])))
+                    del mask, rcnt, row_off  # free before the next group's sweep
+                    swept.append((plans, len(plans[0]), grp, off, hcnt))
+                    for pp in plans:
+                        pp.append(None)  # this group's place, filled below
             for k, i in enumerate(idxs):
                 per_page[i] = (batch[i], inv[k], plans[k], t0, crop)
+        if swept:
+            HOST_WAITS += 1
+            for (plans, slot, grp, off, hcnt), pos in zip(swept, to_host(pos_dev)):
+                pos = pos.numpy()
+                for k, pp in enumerate(plans):
+                    pp[slot] = (grp, "sweep", (pos[off[k] : off[k + 1]], hcnt[k]))
         return per_page
 
     def _collect_page(self, dispatched, verbose: bool, raw: bool, out, struct: bool = False):

@@ -3,13 +3,17 @@ interface loaded with ctypes:
 
   the CUDA kernels (csrc/*.cu, nvcc) — the device stages of every path;
   the ncc host library (csrc/ncc_host.cpp, g++) — the exact f64 replay, the
-      post-processing scans and the all-host search (native/ncc_cpu.py).
+      post-processing scans and the all-host search (native/ncc_cpu.py), and
+      the PNG reader's row unfiltering (io/images.py).
 
 Each is built at first use into focr_tpu_torch/_build/, named by a hash of its
-sources, its flags and its compiler, so a fresh checkout builds once and a
-source edit rebuilds; it is written under a temporary name and renamed, so a
-concurrent loader sees all of it or nothing. A failed build raises with the
-compiler's output: nothing falls back to another implementation.
+sources and its flags (the host library's also by the compiler's name and the
+host CPU), so a fresh checkout builds once, a source edit rebuilds, and a
+library that is already built loads with no compiler present: neither name
+runs a compiler. It is written under a temporary name and renamed, so a
+concurrent loader sees all of it or nothing. A library that is missing and
+cannot be built raises with the compiler's output (or the command that could
+not start): nothing falls back to another implementation.
 
 CUDA: each source compiles in its own nvcc process, all started together, and
 one more links the objects. Flags: sm_90a (Hopper), and --fmad=false with no
@@ -22,7 +26,7 @@ load-bearing: gcc's default contraction fuses the replay's f64
 multiply-subtracts into FMAs, and about 28% of similarities then differ from
 the NumPy replay in the last bit. -march=native code built on one CPU can
 fault with SIGILL on another that shares the tree, so the name's hash also
-covers the compiler's view of the host CPU.
+covers the host CPU's model and feature flags, read from /proc/cpuinfo.
 
 Run ``python -m focr_tpu_torch.native.build`` to build both ahead of time and
 print the CUDA compiler's register and shared-memory report.
@@ -75,22 +79,30 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: building the CUDA kernels needs the CUDA toolkit")
 
 
-def library_path(compiler: str) -> str:
+def library_path() -> str:
+    """The CUDA library's path: a hash of the sources and NVCC_FLAGS."""
     h = hashlib.sha256()
     for name in SOURCES:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
-    h.update("\0".join(NVCC_FLAGS + (compiler,)).encode())
+    h.update("\0".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"libfocr_kernels-{h.hexdigest()[:16]}.so")
 
 
 def _run_all(cmds: list[list[str]]) -> list[str]:
-    """Run the commands concurrently; raise with the first failure's output,
-    else return each one's compiler output."""
-    procs = [
-        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for c in cmds
-    ]
+    """Run the commands concurrently; raise with the first failure's output
+    (or with the command that could not start), else return each one's
+    compiler output."""
+    procs = []
+    try:
+        for c in cmds:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    except OSError as e:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise RuntimeError(f"`{' '.join(cmds[len(procs)])}` could not start: {e}") from e
     outs = [p.communicate()[0] for p in procs]
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
@@ -103,10 +115,10 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
 def build(report: bool = False) -> str:
     """Compile csrc/ into the hashed .so unless it exists; return its path.
     ``report`` adds -Xptxas -v and prints the compiler's output."""
-    compiler = nvcc()
-    out = library_path(compiler)
+    out = library_path()
     if os.path.exists(out) and not report:
         return out
+    compiler = nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [os.path.join(tmpdir, s.replace(".cu", ".o")) for s in SOURCES]
@@ -132,9 +144,11 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.focr_ncc_sweep.argtypes = [p, i, i, i, p, i, i, i, p, p, f, f, p, p, p, i, f, f, f]
     lib.focr_ncc_sweep.restype = i
+    lib.focr_ncc_compact_count.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
+    lib.focr_ncc_compact_count.restype = i
     lib.focr_ncc_compact.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
     lib.focr_ncc_compact.restype = i
-    lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, i, i, i, p, p, p]
+    lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i, i, i, p, p, p]
     lib.focr_ssd_argmin.restype = i
     lib.focr_prop_scan.argtypes = [p, i, i, i, p, i, p, p, i, i, i, f, i, p, p]
     lib.focr_prop_scan.restype = i
@@ -142,27 +156,29 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def _compiler_says(*args: str) -> str:
-    """The host compiler's stdout for ``args``; raises if it cannot run."""
-    cmd = [HOST_CXX, *args]
+def _host_cpu() -> bytes:
+    """What -march=native resolves to, named without running the compiler:
+    the first processor's model and feature lines of /proc/cpuinfo (x86
+    "model name"/"flags", Arm "CPU implementer"/"CPU part"/"Features"), else
+    the machine's architecture."""
+    keys = {"vendor_id", "model name", "flags", "CPU implementer", "CPU part", "Features"}
     try:
-        return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
-    except (OSError, subprocess.CalledProcessError) as e:
-        out = getattr(e, "stderr", "") or ""
-        raise RuntimeError(
-            f"building the ncc host library needs {HOST_CXX}: `{' '.join(cmd)}` "
-            f"failed: {e}\n{out}"
-        ) from e
+        with open("/proc/cpuinfo", "rb") as f:
+            block = f.read().split(b"\n\n", 1)[0]
+    except OSError:
+        return os.uname().machine.encode()
+    lines = [ln for ln in block.splitlines() if ln.split(b":", 1)[0].strip().decode() in keys]
+    return b"\n".join(lines) or os.uname().machine.encode()
 
 
 def host_library_path() -> str:
+    """The host library's path: a hash of the source, HOST_CXX's name,
+    HOST_FLAGS and the host CPU (_host_cpu)."""
     h = hashlib.sha256()
     with open(os.path.join(_CSRC, HOST_SOURCE), "rb") as f:
         h.update(f.read())
     h.update("\0".join((HOST_CXX, *HOST_FLAGS)).encode())
-    h.update(_compiler_says("--version").encode())
-    # what -march=native resolves to on this CPU: the target and every ISA flag
-    h.update(_compiler_says("-march=native", "-Q", "--help=target").encode())
+    h.update(_host_cpu())
     return os.path.join(BUILD_DIR, f"libfocr_host-{h.hexdigest()[:16]}.so")
 
 
@@ -208,6 +224,8 @@ def load_host() -> ctypes.CDLL:
             for fn in (lib.focr_post_winners, lib.focr_post_sort_winners):
                 fn.argtypes = [p, p, i64, i64, p]  # key, sim, n, overlap, out
                 fn.restype = i64
+            lib.focr_png_unfilter.argtypes = [p, i64, i64, i64, p]  # in, rows, stride, bpp, out
+            lib.focr_png_unfilter.restype = i64
             _host_lib = lib
         return _host_lib
 

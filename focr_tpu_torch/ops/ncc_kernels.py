@@ -32,7 +32,8 @@ import torch
 from focr_tpu_torch.ops.ncc import window_stats, word_stride
 
 EPS = 1e-3
-LAUNCHES = {"ncc_sweep": 0, "compact_hits": 0}
+LAUNCHES = {"ncc_sweep": 0, "compact_count": 0, "compact_hits": 0}
+COMPACT_CHUNK = 1024 * 8  # csrc/ncc_compact.cu's CHUNK: mask rows a count block scans
 
 
 def reset_launches() -> None:
@@ -333,29 +334,84 @@ def compact_hits_reference(
     return torch.cat(pos), off, hcnt, nz
 
 
-def compact_hits(
-    mask: torch.Tensor, rcnt: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2 (csrc/ncc_compact.cu) for CUDA tensors, compact_hits_reference for
-    CPU tensors. The output is sized by the exact candidate total (one host
-    sync per call), so nothing is ever truncated."""
-    if mask.device.type == "cpu":
-        return compact_hits_reference(mask, rcnt)
-    if mask.device.type != "cuda":
-        raise ValueError(f"compact_hits: unsupported device {mask.device}")
-    B, T, Hs, NW = mask.shape
-    for name, t in (("mask", mask), ("rcnt", rcnt)):
-        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != mask.device:
-            raise ValueError(f"compact_hits: {name} must be contiguous int32 on {mask.device}")
-    if rcnt.shape != (B, T, Hs):
-        raise ValueError(f"compact_hits: rcnt {tuple(rcnt.shape)} != {(B, T, Hs)}")
-    incl = torch.cumsum(rcnt.reshape(B, T * Hs), dim=1)  # int64
-    off = torch.zeros(B + 1, dtype=torch.int64, device=mask.device)
-    off[1:] = torch.cumsum(incl[:, -1], 0)
-    row_off = (incl - rcnt.reshape(B, T * Hs) + off[:-1, None]).contiguous()
+def compact_counts_reference(rcnt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2's count kernel, on rcnt's device. From the row
+    counts int32 [B, T, Hs]: (row_off int64 [B·T·Hs] — the exclusive prefix
+    over every mask row, pages included: each row's offset in the output;
+    head uint8 — off int64 [B+1], hcnt int32 [B, T] and nz int32 [B] back
+    to back, the one small buffer the host fetches; split_counts reads
+    it)."""
+    B, T, _ = rcnt.shape
+    flat = rcnt.reshape(-1).to(torch.int64)
+    row_off = torch.cumsum(flat, 0) - flat
     hcnt = rcnt.sum(-1, dtype=torch.int32)
     nz = hcnt.sum(-1, dtype=torch.int32)
-    total = int(off[-1].item())
+    off = torch.zeros(B + 1, dtype=torch.int64, device=rcnt.device)
+    off[1:] = torch.cumsum(nz.to(torch.int64), 0)
+    head = torch.cat([off.view(torch.uint8), hcnt.reshape(-1).view(torch.uint8),
+                      nz.view(torch.uint8)])
+    return row_off, head
+
+
+def split_counts(head: torch.Tensor, B: int, T: int):
+    """(off int64 [B+1], hcnt int32 [B, T], nz int32 [B]): views of a count
+    buffer (compact_counts' head), on its device or on the host."""
+    a, b = 8 * (B + 1), 8 * (B + 1) + 4 * B * T
+    return (head[:a].view(torch.int64), head[a:b].view(torch.int32).view(B, T),
+            head[b : b + 4 * B].view(torch.int32))
+
+
+def compact_counts(rcnt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's count kernel (csrc/ncc_compact.cu) for a CUDA tensor,
+    compact_counts_reference for a CPU one: (row_off, head), one launch."""
+    if rcnt.device.type == "cpu":
+        return compact_counts_reference(rcnt)
+    if rcnt.device.type != "cuda":
+        raise ValueError(f"compact_counts: unsupported device {rcnt.device}")
+    if rcnt.dim() != 3 or rcnt.dtype != torch.int32 or not rcnt.is_contiguous():
+        raise ValueError("compact_counts: rcnt must be contiguous int32 [B, T, Hs]")
+    B, T, Hs = rcnt.shape
+    rows = B * T * Hs
+    n_head = 8 * (B + 1) + 4 * (B * T + B)
+    at = -(-n_head // 8) * 8  # the look-back words and the two tickets, zeroed
+    blocks = -(-rows // COMPACT_CHUNK)
+    buf = torch.zeros(at + 8 * blocks + 8, dtype=torch.uint8, device=rcnt.device)
+    head = buf[:n_head]
+    off, hcnt, nz = split_counts(head, B, T)
+    row_off = torch.empty(rows, dtype=torch.int64, device=rcnt.device)
+    if rows:
+        from focr_tpu_torch.native.build import load
+
+        rc = load().focr_ncc_compact_count(
+            rcnt.data_ptr(), B, T, Hs, row_off.data_ptr(), off.data_ptr(), hcnt.data_ptr(),
+            nz.data_ptr(), buf[at:].data_ptr(), buf[at + 8 * blocks :].data_ptr(),
+            torch.cuda.current_stream(rcnt.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"compact_counts kernel launch failed: CUDA error {rc}")
+        LAUNCHES["compact_count"] += 1
+    return row_off, head
+
+
+def compact_emit(
+    mask: torch.Tensor, rcnt: torch.Tensor, row_off: torch.Tensor, total: int
+) -> torch.Tensor:
+    """K2's emit kernel (csrc/ncc_compact.cu) for CUDA tensors: pos int32
+    [total], every set bit of the mask at its row's offset (row_off and the
+    total from compact_counts). For CPU tensors the positions of
+    compact_hits_reference."""
+    if mask.device.type == "cpu":
+        return compact_hits_reference(mask, rcnt)[0]
+    if mask.device.type != "cuda":
+        raise ValueError(f"compact_emit: unsupported device {mask.device}")
+    B, T, Hs, NW = mask.shape
+    for name, t, dt in (("mask", mask, torch.int32), ("rcnt", rcnt, torch.int32),
+                        ("row_off", row_off, torch.int64)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != mask.device:
+            raise ValueError(f"compact_emit: {name} must be contiguous {dt} on {mask.device}")
+    if rcnt.shape != (B, T, Hs) or row_off.numel() != B * T * Hs:
+        raise ValueError(f"compact_emit: rcnt {tuple(rcnt.shape)} or row_off "
+                         f"{tuple(row_off.shape)} does not fit mask {tuple(mask.shape)}")
     pos = torch.empty(total, dtype=torch.int32, device=mask.device)
     if total:
         from focr_tpu_torch.native.build import load
@@ -367,4 +423,37 @@ def compact_hits(
         if rc != 0:
             raise RuntimeError(f"compact_hits kernel launch failed: CUDA error {rc}")
         LAUNCHES["compact_hits"] += 1
-    return pos, off, hcnt, nz
+    return pos
+
+
+def to_host(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The tensors on the host after one wait: from a card, a non-blocking
+    copy of each into pinned memory on the current stream, then one event
+    to wait on; CPU tensors as they are."""
+    if not tensors or tensors[0].device.type == "cpu":
+        return list(tensors)
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return host
+
+
+def compact_hits(
+    mask: torch.Tensor, rcnt: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 for CUDA tensors: the count kernel, one wait for the total (the
+    output is sized by the exact count, so nothing is ever truncated), then
+    the emit kernel; compact_hits_reference for CPU tensors. Returns (pos,
+    off, hcnt, nz) on the mask's device."""
+    if mask.device.type == "cpu":
+        return compact_hits_reference(mask, rcnt)
+    B, T, Hs, _ = mask.shape
+    if tuple(rcnt.shape) != (B, T, Hs):
+        raise ValueError(f"compact_hits: rcnt {tuple(rcnt.shape)} != {(B, T, Hs)}")
+    row_off, head = compact_counts(rcnt)
+    total = int(split_counts(to_host([head])[0], B, T)[0][-1])
+    off, hcnt, nz = split_counts(head, B, T)
+    return compact_emit(mask, rcnt, row_off, total), off, hcnt, nz

@@ -7,16 +7,26 @@ cut each cell's window, score every glyph with the exact-integer SSD metric
 and take the first minimum. The wrapper ``ssd_argmin`` runs the plain version
 for tensors on the CPU and launches the kernel for tensors on a CUDA card;
 there is no fallback between the two. It counts its kernel launches in
-``LAUNCHES``.
+``LAUNCHES``. The kernel has two instances, picked by the shape
+(``ssd_plan``): the int8 tensor cores (``mma``) for windows whose u8 dot is
+exact in s32 and whose block of 16 strips fits in shared memory, the int64
+CUDA-core kernel for the rest. The ``mma`` instance reads the templates
+packed in its B-fragment order (``pack_template_fragments``), which
+StripForward does once a bank.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from focr_tpu_torch.ops.ssd import argmin_glyph, check_window, extract_windows, ssd_metric
 
 LAUNCHES = {"ssd_argmin": 0}
+# csrc/focr_ssd.cu's constants: strips a block of the mma instance, the
+# shared memory a block may use
+MMA_STRIPS = 16
+SMEM_MAX = 232448 - 1024
 
 
 def reset_launches() -> None:
@@ -57,12 +67,68 @@ def ssd_argmin_reference(
     return ids, white
 
 
+def k_steps(h: int, win_w: int) -> int:
+    """The mma instance's k-steps of 32 bytes: the window as 4-byte words
+    (dy, q), each row padded to ceil(win_w/4) words, the total padded to a
+    multiple of 8 words (5 for the canonical 12x9 window, 2 for 3x9)."""
+    return -(-h * -(-win_w // 4) // 8)
+
+
+def ssd_plan(h: int, crop_w: int, win_w: int) -> tuple[str, int, int]:
+    """The launcher's plan (csrc/focr_ssd.cu::focr_ssd_argmin): (instance,
+    k-steps, staged row pitch). "mma" while n·65025 < 2³¹ (the s32 dot is
+    exact) and a block's 16 strips, rows padded to ``pitch`` bytes, fit in
+    shared memory beside the k-word table; "int64" otherwise."""
+    nw4 = -(-win_w // 4)
+    nks = k_steps(h, win_w)
+    pitch = (crop_w + 4 * nw4 + 4 + 3) & ~3  # covers x0 + 4q + 7 for x0 <= crop_w
+    fits = nks * 8 * 4 + MMA_STRIPS * h * pitch <= SMEM_MAX
+    return ("mma" if h * win_w * 65025 < 2**31 and fits else "int64"), nks, pitch
+
+
+def template_fragment_index(G: int, h: int, win_w: int) -> np.ndarray:
+    """Where each byte of one cell's B fragments comes from: int64
+    [ceil(G/8), nks, 32, 8]; byte 4r+j of lane L's two registers for (n-tile
+    nt, k-step s) is the flat index into the cell's templates [G, h, win_w]
+    of its template byte, or G·h·win_w for a zero byte.
+
+    mma.sync.m16n8k32 with B column-major (PTX ISA, the .u8 fragment
+    layout): register r of lane L = 4g + tq holds column g — glyph 8·nt + g
+    — and k bytes 32s + 4tq + 16r + j, i.e. k-word w = 8s + tq + 4r, which is
+    window word (dy, q) = divmod(w, ceil(win_w/4)) and pixel dx = 4q + j.
+    Bytes past win_w, past the window's last word and past G are zero."""
+    nks, nw4 = k_steps(h, win_w), -(-win_w // 4)
+    nt, s, lane, r, j = np.ix_(np.arange(-(-G // 8)), np.arange(nks), np.arange(32),
+                               np.arange(2), np.arange(4))
+    g = 8 * nt + (lane >> 2)
+    w = 8 * s + (lane & 3) + 4 * r
+    dy, dx = w // nw4, 4 * (w % nw4) + j
+    idx = (g * h + dy) * win_w + dx
+    real = (g < G) & (dy < h) & (dx < win_w)
+    return np.where(real, idx, G * h * win_w).reshape(-1, nks, 32, 8)
+
+
+def pack_template_fragments(templates: torch.Tensor) -> torch.Tensor:
+    """[C, G, h, win_w] u8 -> the mma instance's B operand, int32 [C,
+    ceil(G/8), nks, 32, 2] on the templates' device: one uint2 a lane for
+    each (cell, n-tile, k-step), laid out by template_fragment_index.
+    StripForward packs each bank once."""
+    C, G, h, win_w = templates.shape
+    idx = torch.from_numpy(template_fragment_index(G, h, win_w)).to(templates.device)
+    flat = torch.cat([templates.reshape(C, -1), templates.new_zeros(C, 1)], dim=1)
+    return flat[:, idx].view(torch.int32)
+
+
 def ssd_argmin(
-    strips: torch.Tensor, templates: torch.Tensor, tsq: torch.Tensor, wx0: torch.Tensor
+    strips: torch.Tensor, templates: torch.Tensor, tsq: torch.Tensor, wx0: torch.Tensor,
+    bfrag: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4 (csrc/focr_ssd.cu) for CUDA tensors, ssd_argmin_reference for CPU
     tensors. On the card: strips and templates contiguous u8, tsq int64, wx0
-    int32, all on the strips' device; ids and white are new tensors there."""
+    int32 (>= 0), all on the strips' device; ids and white are new tensors
+    there. ``bfrag``: pack_template_fragments(templates), precomputed (the
+    decoder's StripForward carries it); packed here when the mma instance
+    needs it and none is given."""
     if strips.device.type == "cpu":
         return ssd_argmin_reference(strips, templates, tsq, wx0)
     if strips.device.type != "cuda":
@@ -78,11 +144,21 @@ def ssd_argmin(
     white = torch.empty((B, R), dtype=torch.bool, device=strips.device)
     if B * R == 0 or C == 0:
         return ids, white
+    instance, nks, _ = ssd_plan(h, crop_w, win_w)
+    if instance == "mma":
+        if bfrag is None:
+            bfrag = pack_template_fragments(templates)
+        if tuple(bfrag.shape) != (C, -(-G // 8), nks, 32, 2) or (
+            bfrag.dtype != torch.int32 or not bfrag.is_contiguous()
+            or bfrag.device != strips.device
+        ):
+            raise ValueError("ssd_argmin: bfrag must be pack_template_fragments(templates)")
     from focr_tpu_torch.native.build import load
 
     rc = load().focr_ssd_argmin(
         strips.data_ptr(), B * R, h, crop_w,
-        templates.data_ptr(), tsq.data_ptr(), wx0.data_ptr(), C, G, win_w,
+        templates.data_ptr(), bfrag.data_ptr() if instance == "mma" else None,
+        tsq.data_ptr(), wx0.data_ptr(), C, G, win_w,
         ids.data_ptr(), white.data_ptr(),
         torch.cuda.current_stream(strips.device).cuda_stream,
     )

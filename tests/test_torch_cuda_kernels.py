@@ -1,5 +1,5 @@
-"""K1 (both tiers), K2, K4 and K5 on a CUDA card against their plain PyTorch
-versions, exactly.
+"""K1 (both tiers), K2 (count and emit), K4 (both instances) and K5 on a CUDA
+card against their plain PyTorch versions, exactly.
 
 Marked ``cuda``: each test skips without a card. On a machine with one, run
 
@@ -83,12 +83,45 @@ def test_kernels_match_plain_versions(cuda, case):
     mask, rcnt = ncc_kernels.ncc_sweep(*args, thr)
     out = ncc_kernels.compact_hits(mask, rcnt)
     torch.cuda.synchronize()
-    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 1, "compact_hits": 1}
+    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 1, "compact_count": 1, "compact_hits": 1}
     mask_r, rcnt_r = ncc_kernels.ncc_sweep_reference(*args, thr)
     assert torch.equal(mask, mask_r) and torch.equal(rcnt, rcnt_r)
     out_r = ncc_kernels.compact_hits_reference(mask, rcnt)
-    assert all(torch.equal(a, b) for a, b in zip(out, out_r))
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out, out_r))
     assert int(out[3].sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["no-candidates", "blank-page", "dense", "many-chunks"])
+def test_compaction_edge_cases(cuda, case):
+    """K2's count and emit kernels against their plain versions, bit for bit:
+    a wave with no candidate at all (the count runs, the emit has nothing to
+    write), a wave with one blank page among inked ones, a dense wave, and
+    row counts over many of the count kernel's chunks."""
+    rng = np.random.default_rng(len(case))
+    B, T, Hs, NW = {"no-candidates": (3, 5, 40, 3), "blank-page": (4, 17, 60, 4),
+                    "dense": (2, 9, 70, 5), "many-chunks": (8, 222, 614, 2)}[case]
+    density = {"no-candidates": 0.0, "blank-page": 0.05, "dense": 0.9, "many-chunks": 0.01}[case]
+    bits = rng.random((B, T, Hs, NW * 32)) < density
+    if case == "blank-page":
+        bits[1] = False
+    words = (bits.reshape(B, T, Hs, NW, 32).astype(np.int64) << np.arange(32)).sum(-1)
+    mask = torch.from_numpy(np.where(words >= 2**31, words - 2**32, words).astype(np.int32))
+    rcnt = torch.from_numpy(bits.sum(-1).astype(np.int32))
+    mask, rcnt = mask.to(cuda), rcnt.to(cuda)
+    ncc_kernels.reset_launches()
+    row_off, head = ncc_kernels.compact_counts(rcnt)
+    out = ncc_kernels.compact_hits(mask, rcnt)
+    torch.cuda.synchronize()
+    row_off_r, head_r = ncc_kernels.compact_counts_reference(rcnt)
+    assert torch.equal(row_off, row_off_r) and torch.equal(head, head_r)
+    out_r = ncc_kernels.compact_hits_reference(mask, rcnt)
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out, out_r))
+    total = int(bits.sum())
+    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 0, "compact_count": 2,
+                                    "compact_hits": 1 if total else 0}
+    assert (total == 0) == (case == "no-candidates")
+    if case == "blank-page":
+        assert int(out[3][1]) == 0 and int(out[1][2]) == int(out[1][1])
 
 
 FOCR_FIXTURE = os.path.join(
@@ -110,8 +143,29 @@ def _ssd_inputs(case, seed):
         ys = tuple(39 + 15 * i for i in range(50))
         strips = crop_strips(pages, ys, 12, 45, 608)
         return strips, bank.templates, bank.tsq.astype(np.int64), bank.wx0
+    if case.startswith(("tiles-", "strips-", "columns-")) or case == "ties":
+        # the cases of tests/test_torch_ssd_tiles.py, which models this walk
+        from test_torch_ssd_tiles import _case, columns_case
+
+        if case.startswith("columns-"):
+            arrays = columns_case(case[8:])
+        elif case.startswith("strips-"):
+            arrays = _case(int(case[7:]), 12, 40, 4, 11, 9, seed=seed)
+        elif case == "ties":
+            strips, templates, tsq, wx0 = _case(18, 12, 60, 6, 30, 9, seed=7)
+            templates[:, 20] = templates[:, 28] = templates[:, 3]
+            templates[:, [5, 12, 17, 25]] = 0
+            strips[4:9] = 255
+            arrays = strips, templates, (templates.astype(np.int64) ** 2).sum(axis=(2, 3)), wx0
+        else:
+            G, win_w = (int(v[1:]) for v in case.split("-")[1:])
+            h, crop_w = (1, 3, 12)[(G + win_w) % 3], 4 * win_w + 7
+            arrays = _case(21, h, crop_w, 5, G, win_w, seed=G * 100 + win_w,
+                           wx0=[0, 3, crop_w - win_w, crop_w - 2, crop_w])
+        return (arrays[0][None],) + tuple(arrays[1:])
     B, R, h, crop_w, C, G, win_w = {
         "noise": (4, 9, 12, 608, 78, 67, 9),
+        "wide-page": (2, 9, 12, 3000, 40, 67, 9),
         "dup-glyph": (2, 5, 12, 200, 24, 40, 9),
         "narrow": (3, 4, 5, 20, 4, 7, 9),
         "wide-window": (2, 3, 16, 300, 10, 70, 40),
@@ -136,18 +190,29 @@ def _ssd_inputs(case, seed):
     return strips, templates, tsq, wx0
 
 
-@pytest.mark.parametrize("case", ["corpus", "noise", "dup-glyph", "narrow", "wide-window",
-                                  "i64-dot"])
+SSD_CASES = (["corpus", "noise", "dup-glyph", "narrow", "wide-window", "i64-dot", "wide-page",
+              "ties", "columns-ascending", "columns-shuffled"]
+             + [f"strips-{n}" for n in (1, 15, 16, 17, 33)]
+             + [f"tiles-G{g}-w{w}" for g in (1, 8, 9, 67, 200) for w in (1, 3, 4, 5, 9, 13)])
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_argmin_matches_plain_version(cuda, case):
+    """Both instances (the shape picks one: i64-dot and wide-page take the
+    int64 kernel, the rest the tensor cores) against the plain version."""
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
             for a in _ssd_inputs(case, seed=len(case))]
+    h, crop_w, win_w = args[0].shape[2], args[0].shape[3], args[1].shape[3]
+    want = "int64" if case in ("i64-dot", "wide-page") else "mma"
+    assert ssd_kernels.ssd_plan(h, crop_w, win_w)[0] == want
     ssd_kernels.reset_launches()
     ids, white = ssd_kernels.ssd_argmin(*args)
     torch.cuda.synchronize()
     assert ssd_kernels.LAUNCHES == {"ssd_argmin": 1}
     ids_r, white_r = ssd_kernels.ssd_argmin_reference(*args)
     assert torch.equal(ids, ids_r) and torch.equal(white, white_r)
-    assert not bool(white.all()) and (case == "corpus" or bool(white[0, 0]))
+    assert case == "strips-1" or not bool(white.all())  # its one strip is white
+    assert case == "corpus" or bool(white[0, 0])
 
 
 PROP_FIXTURE = os.path.join(

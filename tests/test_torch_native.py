@@ -273,6 +273,47 @@ def test_failed_host_build_raises(faces, monkeypatch, tmp_path, compiler):
     assert ncc_cpu.NATIVE_CALLS["replay_group"] == 0
 
 
+def test_built_cuda_library_loads_without_nvcc(monkeypatch, tmp_path):
+    """A CUDA library already at library_path() is returned without asking
+    for nvcc, whose absence would raise; its name does not depend on which
+    nvcc is on PATH."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "nvcc", no_nvcc)
+    name = build.library_path()
+    assert name.startswith(str(tmp_path))
+    open(name, "wb").close()
+    assert build.build() == name
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert build.library_path() == name
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(report=True)  # a build asks for the compiler
+
+
+def test_host_library_path_runs_no_compiler(monkeypatch):
+    """host_library_path() starts no subprocess: the host CPU's model and
+    flags come from /proc/cpuinfo, and the name covers the compiler's name
+    and flags."""
+    import subprocess
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"host_library_path started a subprocess: {args}")
+
+    name = build.host_library_path()
+    monkeypatch.setattr(subprocess, "run", refuse)
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    monkeypatch.setattr(subprocess, "check_output", refuse)
+    assert build.host_library_path() == name
+    assert build._host_cpu()
+    monkeypatch.setattr(build, "HOST_FLAGS", build.HOST_FLAGS + ("-DX",))
+    assert build.host_library_path() != name
+    monkeypatch.setattr(build, "HOST_CXX", "clang++")
+    assert build.host_library_path() != name
+
+
 @pytest.mark.parametrize("thr", [0.8, -0.2])
 def test_direct_search_matches_focr_tpu(thr):
     """The width-unlimited direct checker on a 21x13 needle (the -t 20 size)

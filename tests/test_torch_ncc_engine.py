@@ -2,6 +2,8 @@
 versions) against focr_tpu's NccMatcher, on the CPU, exactly: hit tuples with
 f32 similarity bytes, decoded text, and the converted device groups."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -160,3 +162,50 @@ def test_crop_remap_matches_focr_tpu(faces):
     assert crop[0] > 0 and crop[1] > 0 and crop[2:] != page.shape
     got = tm.get_hits(page)
     assert len(got) > 0 and key(got) == key(jm.get_hits(page))
+
+
+def test_sweep_wave_plans_and_host_waits(monkeypatch):
+    """On the golden ncc pages (their top 200 rows: the first lines of
+    text), _sweep_wave's plans hold each group's crop-local positions and
+    per-needle counts as compact_hits_reference gives them from the sweep's
+    mask, and the wave waits on the device once for each swept group's
+    counts and once for every group's positions; a blank wave never waits,
+    and a wave of two page shapes still fetches its positions once."""
+    from focr_tpu_torch.fonts.bank import load_needle_bank
+    from focr_tpu_torch.models.types import NCC_DEFAULT_ALPHABET
+    from focr_tpu_torch.ops import ncc_kernels
+
+    fixture = Path(__file__).resolve().parent / "fixtures" / "torch_ncc_golden.npz"
+    with np.load(fixture, allow_pickle=False) as z:
+        pages = [p[:200].copy() for p in z["pages"][:2]]
+    needles, _ = load_needle_bank(str(fixture))
+    tm = torch_ncc.NccMatcher(None, NCC_DEFAULT_ALPHABET, TRenderOptions(size=13.0), x_bits=2,
+                              threshold=0.8, device="cpu", needles=needles)
+    sweeps = []
+
+    def sweep(*args, **kw):
+        sweeps.append(ncc_kernels.ncc_sweep(*args, **kw))
+        return sweeps[-1]
+
+    monkeypatch.setattr(torch_ncc, "ncc_sweep", sweep)
+    torch_ncc.reset_host_waits()
+    wave = tm._sweep_wave(pages)
+    assert torch_ncc.HOST_WAITS == len(tm.groups) + 1 == 3
+    assert len(sweeps) == len(tm.groups)
+    n_cand = 0
+    for gi, (grp, (mask, rcnt)) in enumerate(zip(tm.groups, sweeps)):
+        pos, off, hcnt, _ = ncc_kernels.compact_hits_reference(mask, rcnt)
+        for k, (_, _, plan, _, _) in enumerate(wave):
+            g, kind, (p_pos, p_hcnt) = plan[gi]
+            assert g is grp and kind == "sweep"
+            assert p_pos.dtype == np.int32 and p_hcnt.dtype == np.int32
+            np.testing.assert_array_equal(p_pos, pos[off[k] : off[k + 1]].numpy())
+            np.testing.assert_array_equal(p_hcnt, hcnt[k].numpy())
+            n_cand += len(p_pos)
+    assert n_cand > 0
+    torch_ncc.reset_host_waits()
+    blank = tm._sweep_wave([np.full((60, 80), 255, np.uint8)])
+    assert torch_ncc.HOST_WAITS == 0 and all(kind == "empty" for _, kind, _ in blank[0][2])
+    torch_ncc.reset_host_waits()
+    tm._sweep_wave([pages[0][:90], pages[1][:120]])
+    assert torch_ncc.HOST_WAITS == 2 * len(tm.groups) + 1

@@ -137,6 +137,30 @@ def test_compact_reference_matches_xla_compaction(case):
     assert pos.dtype == torch.int32 and int(off[-1]) == int(jnz.sum())
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_compact_counts_reference_matches_old_arithmetic(case):
+    """The count kernel's plain version gives the row offsets, off, hcnt and
+    nz that the compaction wrapper computed before the count kernel (two
+    cumsums over each page's rows, a subtraction, two sums), and its head
+    buffer splits into them."""
+    mask, rcnt = _torch_sweep(case)
+    B, T, Hs = rcnt.shape
+    incl = torch.cumsum(rcnt.reshape(B, T * Hs), dim=1)
+    off = torch.zeros(B + 1, dtype=torch.int64)
+    off[1:] = torch.cumsum(incl[:, -1], 0)
+    want_row_off = (incl - rcnt.reshape(B, T * Hs) + off[:-1, None]).reshape(-1)
+    hcnt = rcnt.sum(-1, dtype=torch.int32)
+    nz = hcnt.sum(-1, dtype=torch.int32)
+    row_off, head = ncc_kernels.compact_counts(rcnt)
+    assert row_off.dtype == torch.int64 and torch.equal(row_off, want_row_off)
+    got = ncc_kernels.split_counts(head, B, T)
+    for a, b in zip(got, (off, hcnt, nz)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert head.dtype == torch.uint8 and head.numel() == 8 * (B + 1) + 4 * (B * T + B)
+    pos = ncc_kernels.compact_emit(mask, rcnt, row_off, int(off[-1]))
+    assert torch.equal(pos, ncc_kernels.compact_hits_reference(mask, rcnt)[0])
+
+
 @pytest.mark.parametrize("nh,nw", [(13, 9), (7, 6), (1, 1), (20, 20)])
 def test_window_stats_matches_jax(nh, nw):
     rng = np.random.default_rng(nh * 100 + nw)
@@ -217,4 +241,21 @@ def test_cpu_wrappers_count_no_launches():
     ncc_kernels.reset_launches()
     mask, rcnt = _torch_sweep("s0-7x6")
     ncc_kernels.compact_hits(mask, rcnt)
-    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 0, "compact_hits": 0}
+    row_off, head = ncc_kernels.compact_counts(rcnt)
+    ncc_kernels.compact_emit(mask, rcnt, row_off, int(head[:8 * (mask.shape[0] + 1)]
+                                                     .view(torch.int64)[-1]))
+    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 0, "compact_count": 0, "compact_hits": 0}
+
+
+def test_compact_chunk_matches_kernel():
+    """compact_counts sizes the count kernel's look-back buffer with
+    COMPACT_CHUNK rows a block: it must be csrc/ncc_compact.cu's CHUNK
+    (CT threads x CPT rows), or the kernel would index past the buffer."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(ncc_kernels.__file__), os.pardir, "csrc",
+                            "ncc_compact.cu")).read()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert "constexpr int CHUNK = CT * CPT;" in src
+    assert int(consts["CT"]) * int(consts["CPT"]) == ncc_kernels.COMPACT_CHUNK

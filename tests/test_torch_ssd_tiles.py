@@ -1,0 +1,260 @@
+"""A NumPy model of K4's tensor-core walk (csrc/focr_ssd.cu, the mma
+instance), held against the plain version ssd_argmin_reference, exactly.
+
+The card kernel cannot run here, so its index arithmetic is modelled lane by
+lane: the host's packing of each cell's templates into mma.m16n8k32 B
+fragments (pack_template_fragments), the K padding, the shared-memory staging
+of a block's 16 strips (inverted, rows of ``pitch`` bytes, zero past
+crop_w, only the columns the block's 16 cells read), the per-block k-word
+offset table, each lane's A registers as
+funnel shifts of two staged words at the cell's start column, the s32
+accumulation of the C fragments, each lane's strict-< minimum over its
+glyphs and the quad's two xor-shuffles by (metric, g), and the white flag. A
+layout fault in any of them changes the ids. The launcher's plan (which
+instance, the k-steps, the pitch) is mirrored too, with the kernel's
+constants checked against the source.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from focr_tpu_torch.ops import ssd_kernels as S
+
+LANE = np.arange(32)
+GQ, TQ = LANE >> 2, LANE & 3  # the fragments' groupID and thread-in-group
+MS, NWARPS, KH = 16, 16, 5  # strips a block, cells a block, k-steps of A held
+SOURCE = Path(__file__).resolve().parents[1] / "focr_tpu_torch" / "csrc" / "focr_ssd.cu"
+I64_MAX = np.iinfo(np.int64).max
+
+
+def _bytes(regs: np.ndarray) -> np.ndarray:
+    """uint32 registers -> their 4 bytes, lowest first."""
+    return (regs[..., None].astype(np.uint64) >> (8 * np.arange(4, dtype=np.uint64))) & 0xFF
+
+
+def _funnel(lo: np.ndarray, hi: np.ndarray, sh) -> np.ndarray:
+    """__funnelshift_r(lo, hi, sh): the low 32 bits of (hi:lo) >> sh."""
+    v = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return (v >> np.uint64(sh)) & np.uint64(0xFFFFFFFF)
+
+
+def _a_matrix(regs: np.ndarray) -> np.ndarray:
+    """One k-step of A from the lanes' four registers [32, 4]: register i of
+    lane 4g+tq holds row g + 8(i&1), k = 4tq + 16(i>>1) + j."""
+    A = np.zeros((16, 32), np.int64)
+    i, j = np.arange(4)[None, :, None], np.arange(4)[None, None, :]
+    rows = GQ[:, None, None] + 8 * (i & 1) + 0 * j
+    cols = 4 * TQ[:, None, None] + 16 * (i >> 1) + j
+    A[rows, cols] = _bytes(regs)
+    return A
+
+
+def _b_matrix(regs: np.ndarray) -> np.ndarray:
+    """One (n-tile, k-step) of B from the lanes' two registers [32, 2]:
+    register r of lane 4g+tq holds column g, k = 4tq + 16r + j."""
+    B = np.zeros((32, 8), np.int64)
+    j = np.arange(4)[None, :]
+    for r in range(2):
+        B[4 * TQ[:, None] + 16 * r + j, GQ[:, None] + 0 * j] = _bytes(regs[:, r])
+    return B
+
+
+def model_ssd(strips, templates, tsq, wx0):
+    """csrc/focr_ssd.cu's mma walk in NumPy: strips u8 [N, h, crop_w] ->
+    (ids int32 [N, C], white bool [N])."""
+    N, h, crop_w = strips.shape
+    C, G, _, win_w = templates.shape
+    instance, nks, pitch = S.ssd_plan(h, crop_w, win_w)
+    assert instance == "mma"
+    bfrag = S.pack_template_fragments(torch.from_numpy(templates)).numpy().view(np.uint32)
+    NT = -(-G // 8)
+    assert bfrag.shape == (C, NT, nks, 32, 2)
+    nw4 = -(-win_w // 4)
+    koff = np.array([(w // nw4) * pitch + 4 * (w % nw4) if w // nw4 < h else 0
+                     for w in range(nks * 8)])
+    ids = np.full((N, C), -1, np.int64)
+    white = np.zeros(N, bool)
+    x0s = np.clip(wx0.astype(np.int64), 0, crop_w)
+    for m0, c0 in ((m0, c0) for m0 in range(0, N, MS) for c0 in range(0, C, NWARPS)):
+        # block (m0, grid.y = c0 / NWARPS) stages columns [xa, xe) of its
+        # strips' rows, inverted, in whole 16-byte pieces up to crop_w, with
+        # zeros past crop_w; the rest of its shared memory holds whatever it
+        # held (0xA5 here, so a read outside the staged columns changes the
+        # ids; rows of absent strips are never written out). Blocks of
+        # grid.y 0 stage whole rows and give the white flags.
+        ms = min(MS, N - m0)
+        cells = x0s[c0 : c0 + NWARPS]
+        xa = int(cells.min()) & ~15 if c0 else 0
+        xe = min(crop_w, (int(cells.max()) & ~3) + 4 * nw4 + 4) if c0 else crop_w
+        xs = min(crop_w, xa + 16 * (-(-(xe - xa) // 16)))
+        st = np.full((MS * h, pitch), 0xA5, np.uint8)
+        st[:, crop_w:] = 0
+        st[: ms * h, xa:xs] = 255 - strips[m0 : m0 + ms].reshape(ms * h, crop_w)[:, xa:xs]
+        words = st.reshape(-1).view("<u4").astype(np.uint64)
+        if c0 == 0:
+            white[m0 : m0 + ms] = (strips[m0 : m0 + ms] == 255).all(axis=(1, 2))
+        for c in range(c0, min(C, c0 + NWARPS)):  # a warp a cell
+            x0 = int(x0s[c])
+            sh, xa = (x0 & 3) * 8, x0 & ~3
+            lo = GQ * h * pitch + xa  # byte offset of each lane's strip gq, row 0
+            hi = lo + 8 * h * pitch
+            best = np.full((2, 32), I64_MAX)  # strips gq, gq + 8
+            bg = np.full((2, 32), G)
+            for nt in range(NT):
+                acc = np.zeros((32, 4), np.int64)
+                for s in range(nks):
+                    o0, o1 = koff[8 * s + TQ], koff[8 * s + TQ + 4]
+                    regs = np.stack([_funnel(words[(b + o) // 4], words[(b + o) // 4 + 1], sh)
+                                     for b, o in ((lo, o0), (hi, o0), (lo, o1), (hi, o1))], axis=1)
+                    Cm = _a_matrix(regs) @ _b_matrix(bfrag[c, nt, s])
+                    for i in range(4):
+                        acc[:, i] += Cm[GQ + 8 * (i >> 1), 2 * TQ + (i & 1)]
+                assert np.abs(acc).max(initial=0) < 2**31  # s32, exact
+                for e in range(2):
+                    g = 8 * nt + 2 * TQ + e
+                    t = tsq[c, np.minimum(g, G - 1)]
+                    for half in range(2):
+                        m = t - 2 * acc[:, 2 * half + e]
+                        take = (g < G) & (m < best[half])  # strict <: the first minimum
+                        best[half] = np.where(take, m, best[half])
+                        bg[half] = np.where(take, g, bg[half])
+            for d in (1, 2):  # the quad's xor-shuffles by (metric, g)
+                om, og = best[:, LANE ^ d], bg[:, LANE ^ d]
+                take = (om < best) | ((om == best) & (og < bg))
+                best, bg = np.where(take, om, best), np.where(take, og, bg)
+            for lane in np.flatnonzero(TQ == 0):
+                for half in range(2):
+                    m = GQ[lane] + 8 * half
+                    if m < ms:
+                        ids[m0 + m, c] = bg[half, lane]
+    assert (ids >= 0).all()
+    return ids.astype(np.int32), white
+
+
+def _case(N, h, crop_w, C, G, win_w, seed, wx0=None):
+    rng = np.random.default_rng(seed)
+    strips = rng.integers(0, 256, (N, h, crop_w)).astype(np.uint8)
+    strips[0] = 255  # a white strip
+    if N > 2:
+        strips[2] = np.clip(rng.integers(250, 262, (h, crop_w)), 0, 255)  # near-ties
+    templates = rng.integers(0, 256, (C, G, h, win_w), dtype=np.uint8)
+    templates[templates < 120] = 0
+    if wx0 is None:
+        wx0 = np.minimum(np.arange(C) * max(1, crop_w // C) + np.arange(C) % 3, crop_w)
+    tsq = (templates.astype(np.int64) ** 2).sum(axis=(2, 3))
+    return strips, templates, tsq, np.asarray(wx0, np.int32)
+
+
+def _check(strips, templates, tsq, wx0):
+    ids, white = model_ssd(strips, templates, tsq, wx0)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (strips[None], templates, tsq, wx0)]
+    ids_r, white_r = S.ssd_argmin_reference(*args)
+    np.testing.assert_array_equal(ids, ids_r[0].numpy())
+    np.testing.assert_array_equal(white, white_r[0].numpy())
+    return ids
+
+
+@pytest.mark.parametrize("win_w", [1, 3, 4, 5, 9, 13])
+@pytest.mark.parametrize("G", [1, 8, 9, 67, 200])
+def test_tile_walk_matches_plain_version(G, win_w):
+    """G around the 8-glyph n-tile; win_w around the 4-byte k-word; h in
+    {1, 3, 12} in turn; 21 strips: a full block of 16 and a partial one;
+    the last windows hang past crop_w, one starts at it."""
+    h = (1, 3, 12)[(G + win_w) % 3]
+    crop_w = 4 * win_w + 7
+    C = 5
+    wx0 = [0, 3, crop_w - win_w, crop_w - 2, crop_w]
+    _check(*_case(21, h, crop_w, C, G, win_w, seed=G * 100 + win_w, wx0=wx0))
+
+
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 33])
+def test_tile_walk_strip_counts(N):
+    _check(*_case(N, 12, 40, 4, 11, 9, seed=N))
+
+
+def columns_case(order: str):
+    """40 cells over three blocks of grid.y on a 203-column strip (not a
+    multiple of 16): the blocks past the first stage only their cells'
+    columns, from a 16-byte piece that starts up to 15 bytes before the first
+    of them. Cells ascending as on a grid, or shuffled; three start at
+    crop_w and one hangs past it."""
+    C, crop_w = 40, 203
+    wx0 = np.minimum(np.arange(C) * 5 + np.arange(C) % 3 + 9, crop_w)
+    wx0[[17, 33]], wx0[35] = crop_w, crop_w - 3
+    if order == "shuffled":
+        wx0 = np.random.default_rng(5).permutation(wx0)
+    return _case(21, 12, crop_w, C, 11, 9, seed=5, wx0=wx0)
+
+
+@pytest.mark.parametrize("order", ["ascending", "shuffled"])
+def test_tile_walk_block_columns(order):
+    _check(*columns_case(order))
+
+
+def test_tile_walk_exact_ties():
+    """Duplicated glyphs and empty glyphs tie exactly (on white windows every
+    empty glyph scores 0): the lowest glyph index wins, across the lanes of
+    a quad and across n-tiles."""
+    strips, templates, tsq, wx0 = _case(18, 12, 60, 6, 30, 9, seed=7)
+    templates[:, 20] = templates[:, 3]
+    templates[:, 28] = templates[:, 3]
+    templates[:, [5, 12, 17, 25]] = 0
+    tsq = (templates.astype(np.int64) ** 2).sum(axis=(2, 3))
+    strips[4:9] = 255
+    ids = _check(strips, templates, tsq, wx0)
+    assert not np.isin(ids, [20, 28, 12, 17, 25]).any() and (ids[4:9] == 5).all()
+
+
+def test_canonical_shape_plan():
+    """The canonical focr grid (78 cells of 12x9 windows on a 608-column
+    strip, and the 3-row bottom group) takes the mma instance; a window whose
+    dot may pass 2³¹ (n >= 33026) or a strip block too wide for shared
+    memory takes the int64 one."""
+    assert S.ssd_plan(12, 608, 9) == ("mma", 5, 624)
+    assert S.ssd_plan(3, 608, 9) == ("mma", 2, 624)
+    assert S.ssd_plan(1, 40000, 34000)[0] == "int64"
+    assert S.ssd_plan(1, 40000, 33025)[0] == "int64"  # 16 strips of 40 KB: no room
+    assert S.ssd_plan(1, 1000, 9000) == ("mma", 282, 10004)
+    assert S.ssd_plan(12, 3000, 9)[0] == "int64"
+    assert S.ssd_plan(16, 300, 40) == ("mma", 20, 344)
+
+
+@pytest.mark.parametrize("C,G,h,win_w", [(2, 67, 12, 9), (1, 1, 1, 1), (3, 9, 3, 13),
+                                          (1, 200, 5, 4)])
+def test_template_fragments(C, G, h, win_w):
+    """Each fragment byte is the template byte the mma layout puts there; the
+    K padding, bytes past win_w and glyphs past G are zero; every template
+    byte appears exactly once."""
+    rng = np.random.default_rng(G)
+    templates = rng.integers(1, 256, (C, G, h, win_w), dtype=np.uint8)
+    frags = S.pack_template_fragments(torch.from_numpy(templates)).numpy().view(np.uint32)
+    nks, nw4 = S.k_steps(h, win_w), -(-win_w // 4)
+    assert nks * 8 >= h * nw4 > (nks - 1) * 8
+    assert frags.shape == (C, -(-G // 8), nks, 32, 2)
+    for c in range(C):
+        B = np.zeros((nks * 32, frags.shape[1] * 8), np.int64)
+        for nt in range(frags.shape[1]):
+            for s in range(nks):
+                B[32 * s : 32 * s + 32, 8 * nt : 8 * nt + 8] = _b_matrix(frags[c, nt, s])
+        want = np.zeros_like(B)
+        for dy in range(h):
+            for dx in range(win_w):
+                want[4 * (dy * nw4 + dx // 4) + dx % 4, :G] = templates[c, :, dy, dx]
+        np.testing.assert_array_equal(B, want)
+
+
+def test_kernel_constants():
+    """The mirror above holds the kernel's own constants, and the launcher
+    computes k-steps and the pitch as ssd_plan does."""
+    src = SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr (?:int|size_t) (\w+) = ([^;]+);", src))
+    assert {k: int(eval(consts[k])) for k in ("MS", "NWARPS", "KH", "SMEM_MAX")} == {
+        "MS": MS, "NWARPS": NWARPS, "KH": KH, "SMEM_MAX": S.SMEM_MAX}
+    assert S.MMA_STRIPS == MS
+    assert "const int nks = (h * nw4 + 7) / 8;" in src
+    assert "const int pitch = (crop_w + 4 * nw4 + 4 + 3) & ~3;" in src
+    assert "h) * win_w * 65025LL < (1LL << 31) && smem <= SMEM_MAX" in src

@@ -1,14 +1,16 @@
-"""Where the port's ncc and prop CLIs spend their time on a CUDA card, and
-their pages/s (or K1's time alone) against another checkout of the repo, in
-turns.
+"""Where the port's ncc, focr and prop CLIs spend their time on a CUDA card,
+and their pages/s (or the kernels' times alone) against another checkout of
+the repo, in turns.
 
     python tools/torch_cli_profile.py profile [--runs N]            # stage tables
     python tools/torch_cli_profile.py compare OTHER_ROOT [--runs N] # pages/s in turns
-    python tools/torch_cli_profile.py sweep OTHER_ROOT              # K1 ms/page in turns
+    python tools/torch_cli_profile.py kernels OTHER_ROOT            # K1, K2, K4 in turns
+    python tools/torch_cli_profile.py summary OUTPUT_FILE           # medians of a run's lines
 
-Both run the CLIs in-process (``main()``) on the 16 pages of the golden
-fixtures (tests/fixtures/torch_{ncc,prop}_golden.npz, written as PGMs), with
-the saved banks (``--needle-bank``, ``--grid-bank``), after one warm-up run.
+All run the CLIs in-process (``main()``) on the 16 pages of the golden
+fixtures (tests/fixtures/torch_{ncc,focr,prop}_golden.npz, written as PGMs),
+with the saved banks (``--needle-bank``, ``--grid-bank``), after one warm-up
+run.
 
 profile — for each CLI: the wall of N warm runs (default 6); one run under cProfile with
     the ncc collect pool set to 1 thread (cProfile follows every thread, so a
@@ -17,15 +19,22 @@ profile — for each CLI: the wall of N warm runs (default 6); one run under cPr
     reduced to the device time by kernel and in all (device busy = device
     time / wall).
 compare — runs ``time`` in a fresh process for OTHER_ROOT, this root, this
-    root and OTHER_ROOT (in that order), each timing N warm runs of each CLI,
-    and prints each process's pages/s. OTHER_ROOT is a checkout of the
-    package (``git archive`` of a commit, or a variant's copy under
-    ``_checkout/``), imported in place of this one.
-sweep — the same turns, each process timing K1 alone at the ncc main path's
-    shapes: the first wave of the ncc fixture, inverted and ink-cropped as the
-    matcher does, against both needle groups (held bit for bit against the
-    plain version first; the best of 5 means of 20 launches, CUDA events).
-    Each process builds its kernels with the register report (stderr).
+    root and OTHER_ROOT (in that order), each timing N warm runs of each CLI
+    (with the ncc device stage ``_sweep_wave``'s ms a run), and prints each
+    process's pages/s. OTHER_ROOT is a checkout of the package (``git
+    archive`` of a commit, or a variant's copy under ``_checkout/``),
+    imported in place of this one.
+kernels — the same turns, each process timing K1 and K2 (``compact_hits``:
+    everything the main path runs between K1 and the positions) at the ncc
+    main path's shapes — the first wave of the ncc fixture, inverted and
+    ink-cropped as the matcher does, against both needle groups — and K4 on
+    the focr fixture's 16 pages cropped as the decoder crops them (each held
+    bit for bit against its plain version first; the best of 5 means of 20
+    calls, CUDA events). Each process builds its kernels with the register
+    report (stderr).
+summary — reads the JSON lines that ``compare`` or ``kernels`` printed (saved
+    to a file) and prints, for each process in order, the median and
+    quartiles of every list (pages/s, ``_sweep_wave`` ms) and every number.
 
 Every output line is JSON; each names the card (`nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`).
@@ -54,20 +63,29 @@ RUNS = int(sys.argv[sys.argv.index("--runs") + 1]) if "--runs" in sys.argv else 
 STAGES = {
     "ncc": ("load_needle_bank", "load_gray", "_sweep_wave", "_collect_page", "_replay_group",
             "process_hits_text"),
+    "focr": ("load_grid_bank", "load_gray_many_isolated", "decode_pages", "_dispatch",
+             "ssd_argmin", "_finish"),
     "prop": ("load_grid_bank", "load_gray_many_isolated", "decode_pages", "_decode_prop",
              "prop_scan", "decode_lines"),
 }
+CLIS = ("ncc", "focr", "prop")
+
+
+def _fixture(cli: str) -> str:
+    return os.path.join(FIXTURES, f"torch_{cli}_golden.npz")
 
 
 def _argv(cli: str, paths: list[str]) -> list[str]:
     if cli == "ncc":
         return ["-i", *paths, "-f", FONT, "-t", "13", "--x-bits", "2", "--needle-bank",
-                os.path.join(FIXTURES, "torch_ncc_golden.npz")]
+                _fixture(cli)]
+    if cli == "focr":
+        return ["-i", *paths, "-f", FONT, "-t", "13", *GRID, "--grid-bank", _fixture(cli)]
     from focr_tpu_torch.fonts.bank import load_grid_bank
 
-    alphabet = load_grid_bank(os.path.join(FIXTURES, "torch_prop_golden.npz"))[1]["alphabet"]
+    alphabet = load_grid_bank(_fixture(cli))[1]["alphabet"]
     return ["-i", *paths, "-f", SANS_FONT, "-t", "13", "-a", alphabet, *GRID, "--grid-bank",
-            os.path.join(FIXTURES, "torch_prop_golden.npz")]
+            _fixture(cli)]
 
 
 @contextlib.contextmanager
@@ -77,8 +95,7 @@ def _cli(cli: str):
 
     from focr_tpu_torch.io.images import save_gray
 
-    name = "torch_ncc_golden.npz" if cli == "ncc" else "torch_prop_golden.npz"
-    with np.load(os.path.join(FIXTURES, name), allow_pickle=False) as z:
+    with np.load(_fixture(cli), allow_pickle=False) as z:
         pages = z["pages"]
     if cli == "ncc":
         from focr_tpu_torch.cli.ncc import main
@@ -133,7 +150,7 @@ def time_clis(root: str) -> None:
             sweep_s[-1] += time.perf_counter() - t0
 
     ncc_model.NccMatcher._sweep_wave = timed_wave
-    for cli in ("ncc", "prop"):
+    for cli in CLIS:
         with _cli(cli) as (main, argv, n):
             sweep_s.append(0.0)
             _run(main, argv)
@@ -149,27 +166,47 @@ def time_clis(root: str) -> None:
         print(json.dumps(line), flush=True)
 
 
-def time_sweep(root: str) -> None:
-    """K1's ms/page per needle group for the checkout at ``root``."""
+def _best_ms(fn, per: int) -> float:
+    """The best of 5 means of 20 calls, in ms per ``per`` pages (CUDA events)."""
+    import torch
+
+    fn()
+    best = float("inf")
+    for _ in range(5):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(20):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / 20 / per)
+    return best
+
+
+def time_kernels(root: str) -> None:
+    """K1's and K2's ms/page per needle group and K4's per row group for the
+    checkout at ``root``."""
     import numpy as np
     import torch
 
-    from focr_tpu_torch.fonts.bank import load_needle_bank
+    from focr_tpu_torch.fonts.bank import load_grid_bank, load_needle_bank
+    from focr_tpu_torch.models import focr as focr_model
     from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.models.types import DecodeOptions, RenderOptions
     from focr_tpu_torch.native import build
     from focr_tpu_torch.ops import ncc_kernels as K
+    from focr_tpu_torch.ops import ssd_kernels as S
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     build.build(report=True)
-    fixture = os.path.join(FIXTURES, "torch_ncc_golden.npz")
-    with np.load(fixture, allow_pickle=False) as z:
+    with np.load(_fixture("ncc"), allow_pickle=False) as z:
         pages = z["pages"][: ncc_model.WAVE]
     inv = (255 - pages.astype(np.int16)).astype(np.uint8)
-    groups = ncc_model._group_needles(load_needle_bank(fixture)[0])
+    groups = ncc_model._group_needles(load_needle_bank(_fixture("ncc"))[0])
     y0, x0, Hc, Wc = ncc_model._ink_crop(inv, *inv.shape[1:], groups)
     x = torch.from_numpy(np.ascontiguousarray(inv[:, y0 : y0 + Hc, x0 : x0 + Wc])).cuda()
-    ms = {}
+    out = {"root": root}
     for g in groups:
         dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, 0.8, x.device)
         args = (x, dg.bank, dg.s_n, dg.s2_n, 0.8)
@@ -177,18 +214,37 @@ def time_sweep(root: str) -> None:
         mask_r, rcnt_r = K.ncc_sweep_reference(*args, terms=dg.terms)
         if not (torch.equal(mask, mask_r) and torch.equal(rcnt, rcnt_r)):
             raise AssertionError(f"K1 differs from its plain version ({g.nw}x{g.nh})")
-        best = float("inf")
-        for _ in range(5):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(20):
-                K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag)
-            e1.record()
-            torch.cuda.synchronize()
-            best = min(best, e0.elapsed_time(e1) / 20 / len(pages))
-        ms[f"{g.nw}x{g.nh}"] = best
-    print(json.dumps({"root": root, "k1_ms_per_page": ms, "total": sum(ms.values()),
-                      "card": _card()}), flush=True)
+        if not all(torch.equal(a, b) for a, b in zip(K.compact_hits(mask, rcnt),
+                                                    K.compact_hits_reference(mask, rcnt))):
+            raise AssertionError(f"K2 differs from its plain version ({g.nw}x{g.nh})")
+        name = f"{g.nw}x{g.nh}"
+        out[f"k1_{name}"] = _best_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag),
+                                     len(pages))
+        out[f"k2_{name}"] = _best_ms(lambda: K.compact_hits(mask, rcnt), len(pages))
+        if hasattr(K, "compact_counts"):  # K2's two kernels alone, without the wait
+            row_off, head = K.compact_counts(rcnt)
+            total = int(K.split_counts(head.cpu(), *rcnt.shape[:2])[0][-1])
+            out[f"k2count_{name}"] = _best_ms(lambda: K.compact_counts(rcnt), len(pages))
+            out[f"k2emit_{name}"] = _best_ms(
+                lambda: K.compact_emit(mask, rcnt, row_off, total), len(pages))
+    banks, settings = load_grid_bank(_fixture("focr"))
+    with np.load(_fixture("focr"), allow_pickle=False) as z:
+        fpages = z["pages"]
+    dopts = DecodeOptions(x_start=45, y_start=39, line_height=12, line_advance=15, width=608)
+    dec = focr_model.GridDecoder(None, settings["alphabet"], dopts, RenderOptions(size=13.0),
+                                 fpages.shape[1:], "cuda", banks=banks)
+    for grp, fwd in dec.groups:
+        strips = torch.from_numpy(focr_model.crop_strips(
+            fpages, grp.ys, grp.crop_h, dec.x0, dec.crop_w)).cuda()
+        got = fwd(strips)
+        want = S.ssd_argmin_reference(strips, fwd.templates, fwd.tsq, fwd.wx0)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K4 differs from its plain version (h={grp.crop_h})")
+        out[f"k4_h{grp.crop_h}"] = _best_ms(lambda: fwd(strips), len(fpages))
+    for k in ("k1", "k2", "k2count", "k2emit", "k4"):
+        out[f"{k}_total"] = sum(v for n, v in out.items() if n.startswith(f"{k}_"))
+    out["card"] = _card()
+    print(json.dumps(out), flush=True)
 
 
 def profile() -> None:
@@ -200,7 +256,7 @@ def profile() -> None:
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
-    for cli in ("ncc", "prop"):
+    for cli in CLIS:
         with _cli(cli) as (main, argv, n):
             _run(main, argv)
             walls = [_run(main, argv) for _ in range(RUNS)]
@@ -250,15 +306,35 @@ def compare(other: str, mode: str) -> None:
         sys.stderr.write(res.stderr)
 
 
+def summary(path: str) -> None:
+    import numpy as np
+
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            out = {k: rec[k] for k in ("root", "cli") if k in rec}
+            for k, v in rec.items():
+                if isinstance(v, list) and v:
+                    q1, med, q3 = np.percentile(v, [25, 50, 75])
+                    out[k] = {"median": med, "q1": q1, "q3": q3}
+                elif isinstance(v, float):
+                    out[k] = v
+            print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     mode = sys.argv[1] if len(sys.argv) > 1 else "profile"
-    if mode in ("time", "sweep-time"):
+    if mode in ("time", "kernels-time"):
         root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1] if "--root" in sys.argv
                                else HERE)
         sys.path.insert(0, root)
-        (time_clis if mode == "time" else time_sweep)(root)
-    elif mode in ("compare", "sweep"):
-        compare(os.path.abspath(sys.argv[2]), "time" if mode == "compare" else "sweep-time")
+        (time_clis if mode == "time" else time_kernels)(root)
+    elif mode == "summary":
+        summary(sys.argv[2])
+    elif mode in ("compare", "kernels"):
+        compare(os.path.abspath(sys.argv[2]), "time" if mode == "compare" else "kernels-time")
     else:
         sys.path.insert(0, HERE)
         profile()
