@@ -91,8 +91,34 @@ Phases, each of which raises on failure:
                16-bit RGB with Adam7, and as save_gray writes it) must decode
                to its PGM, and a PGM and a PNG page's read times
 
+ 13. pipeline — the ncc CLI in-process on the 16 pages four times over (64
+               pages, eight waves, 296 needles): stdout equal to the 16 pages'
+               four times; 3 host waits a wave; K1 and K2 launched twice a
+               wave each; a torch.profiler trace of one such run, with one K1
+               launch on the caller's stream as a marker in front, must show
+               the pipeline's K1 launches on another stream, and the first K1
+               of wave k+1 starting before the collection of wave k ends, for
+               every k; then pages/s at the pipeline's depth and at depth 0
+               (the stages in series), in turns, four calls
+ 14. banks   — the focr and prop CLIs on their 16 pages decompress exactly the
+               crop heights they use (12 and 3), counted on the bank set the
+               CLI opened; the bank load's ms when every height is asked for
+               (what the eager load did) and when only those two are
+ 15. metrics — the focr and ncc CLIs with --metrics-json and --profile: the
+               JSON has exactly focr_tpu's keys and decoded_pages 16, the
+               trace file names a focr_ kernel, stdout is unchanged by both
+               flags; --verbose-sync on one golden page prints the measured
+               label on every group line and the golden lines on stdout;
+               --device-kernel pallas --wire pos --mesh auto leave stdout
+               unchanged
+ 16. overlays — where FreeType loads: focr --verify and --test write their
+               PNGs and the verify line; where it does not: --verify with
+               --grid-bank raises Face's error, and the run prints
+               {"overlays": "no FreeType on this machine"}
+
 Then a JSON line with the conv2d yardstick, one JSON line of the kernels
-(with the host tier's numbers under "host_native"), the card line, and last
+(with the host tier's numbers under "host_native" and phases 13-14's under
+"pipeline" and "banks"), the card line, and last
 {"ok": true, "device": {...}}. Each kernel's entry carries its launches on
 the counted main path (phases 5, 8, 11) and per page, its max|err| against
 its plain version, its ms and plain_ms per page, bound_ms per page — the
@@ -759,6 +785,287 @@ def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
             "candidates_per_page": n_cand / B, **reads}
 
 
+def _write_pages(tmp: str, pages) -> list[str]:
+    from focr_tpu_torch.io.images import save_gray
+
+    paths = []
+    for k, p in enumerate(pages):
+        paths.append(os.path.join(tmp, f"page{k:02d}.pgm"))
+        save_gray(paths[-1], p)
+    return paths
+
+
+def _run_cli(main, argv) -> tuple[str, str]:
+    """(stdout, stderr) of one in-process CLI run, which must exit 0."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"CLI exited {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def pipeline_phase(matcher, pages, want16: str, card: str) -> dict:
+    """Phase 13: the ncc pipeline on 64 pages. ``want16``: the CLI's stdout on
+    the 16 pages (phase 5 held it to the fixture)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from focr_tpu_torch.cli.ncc import main as ncc_main
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.ops import ncc_kernels as K
+
+    reps = 4
+    n = reps * len(pages)
+    n_waves = -(-n // ncc_model.WAVE)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _write_pages(tmp, pages)
+        argv = ["-i", *(paths * reps), "-f", FONT, "-t", "13", "--x-bits", "2",
+                "--needle-bank", FIXTURE]
+        # the counted run
+        K.reset_launches()
+        ncc_model.reset_host_waits()
+        out, _ = _run_cli(ncc_main, argv)
+        launches, waits = dict(K.LAUNCHES), ncc_model.HOST_WAITS
+        if out != want16 * reps:
+            raise AssertionError("pipeline: the 64 pages' stdout is not the 16 pages' four times")
+        groups = len(matcher.groups)
+        if waits != (groups + 1) * n_waves or launches != {
+                "ncc_sweep": groups * n_waves, "compact_count": groups * n_waves,
+                "compact_hits": groups * n_waves}:
+            raise AssertionError(f"pipeline: {n_waves} waves waited {waits} times and launched "
+                                 f"{launches}")
+        # the traced run, a K1 launch on the caller's stream in front as a marker
+        dg = matcher.dev_groups[0]
+        strip = torch.from_numpy(255 - np.ascontiguousarray(pages[:1, :64])).to(matcher.device)
+        trace_path = os.path.join(tmp, "trace.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            K.ncc_sweep(strip, dg.bank, dg.s_n, dg.s2_n, THRESHOLD, terms=dg.terms,
+                        afrag=dg.afrag)
+            torch.cuda.synchronize()
+            out, _ = _run_cli(ncc_main, argv)
+            torch.cuda.synchronize()
+        if out != want16 * reps:
+            raise AssertionError("pipeline: the traced run's stdout differs")
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        k1 = sorted((e for e in events if e.get("cat") == "kernel"
+                     and "focr_ncc_sweep_kernel" in e.get("name", "")), key=lambda e: e["ts"])
+        spans = [e for e in events if e.get("name") == "focr_ncc_collect_wave"
+                 and e.get("ph") == "X" and e.get("cat") in ("user_annotation", "cpu_op")]
+        if any(e["cat"] == "user_annotation" for e in spans):
+            spans = [e for e in spans if e["cat"] == "user_annotation"]
+        spans.sort(key=lambda e: e["ts"])
+        if len(k1) != 1 + groups * n_waves or len(spans) != n_waves:
+            raise AssertionError(f"pipeline trace: {len(k1)} K1 launches and {len(spans)} "
+                                 f"collect spans for {n_waves} waves")
+        marker, side = k1[0]["args"]["stream"], {e["args"]["stream"] for e in k1[1:]}
+        if len(side) != 1 or marker in side:
+            raise AssertionError(f"pipeline trace: the pipeline's K1 ran on streams {side}, the "
+                                 f"caller's stream is {marker}")
+        leads = []  # how long before wave k's collection ended wave k+1's first K1 started
+        for k in range(n_waves - 1):
+            start = k1[1 + groups * (k + 1)]["ts"]
+            end = spans[k]["ts"] + spans[k]["dur"]
+            if not start < end:
+                raise AssertionError(f"pipeline trace: wave {k + 1}'s sweep started {start - end} "
+                                     f"us after wave {k}'s collection ended: no overlap")
+            leads.append((end - start) / 1e3)
+        log(f"[pipeline] {n} pages, {n_waves} waves: stdout = the 16 pages' x{reps}; host waits "
+            f"{waits} ({waits / n_waves:g} a wave); launches {launches}; trace: K1 on stream "
+            f"{side.pop()} (the caller's is {marker}), wave k+1's first K1 starts "
+            f"{min(leads):.2f}-{max(leads):.2f} ms before wave k's collection ends, for every k")
+        # pages/s at the pipeline's depth against depth 0 (the stages in series)
+        depth = ncc_model.PIPELINE_DEPTH
+        rates = {depth: [], 0: []}
+        try:
+            for d in (depth, 0, 0, depth):
+                ncc_model.PIPELINE_DEPTH = d
+                ts = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    if _run_cli(ncc_main, argv)[0] != want16 * reps:
+                        raise AssertionError(f"pipeline: depth {d} changed the stdout")
+                    ts.append(time.perf_counter() - t0)
+                rates[d].append(n / sorted(ts)[1])
+        finally:
+            ncc_model.PIPELINE_DEPTH = depth
+    log(f"[pipeline] {n} pages, pages/s (median of 3 runs a call; calls in turns): depth {depth} "
+        f"{[round(r, 1) for r in rates[depth]]}, depth 0 {[round(r, 1) for r in rates[0]]}; "
+        f"collect threads {ncc_model.COLLECT_THREADS}; card {card}")
+    return {"pages": n, "waves": n_waves, "host_waits": waits, "launches": launches,
+            "depth": depth, "pages_per_s": rates[depth], "pages_per_s_depth0": rates[0],
+            "sweep_lead_ms_min": min(leads), "collect_threads": ncc_model.COLLECT_THREADS}
+
+
+@contextlib.contextmanager
+def recorded_bank_sets():
+    """The focr bank sets that load_grid_bank opens inside the block (the CLI
+    opens its own)."""
+    from focr_tpu_torch.fonts import bank
+
+    made, orig = [], bank.load_grid_bank
+
+    def recording(path):
+        out = orig(path)
+        made.append(out[0])
+        return out
+
+    bank.load_grid_bank = recording
+    try:
+        yield made
+    finally:
+        bank.load_grid_bank = orig
+
+
+def focr_cli_cases(tmp: str) -> dict:
+    """name -> (argv of the focr CLI on the corpus' 16 pages, focr_tpu's
+    stdout) for the focr and prop corpora, pages written under ``tmp``."""
+    import numpy as np
+
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+
+    cases = {}
+    for name, fixture, font in (("focr", FOCR_FIXTURE, FONT), ("prop", PROP_FIXTURE, SANS_FONT)):
+        with np.load(fixture, allow_pickle=False) as z:
+            pages, golden = z["pages"], json.loads(str(z["lines"]))
+        os.makedirs(os.path.join(tmp, name))
+        paths = _write_pages(os.path.join(tmp, name), pages)
+        alphabet = load_grid_bank(fixture)[1]["alphabet"]
+        cases[name] = (["-i", *paths, "-f", font, "-t", "13", "-a", alphabet, *FOCR_GRID,
+                        "--grid-bank", fixture],
+                       "".join(f"{text}\n" for p in golden for text, _ in p))
+    return cases
+
+
+def banks_phase(cases: dict) -> dict:
+    """Phase 14: the lazy bank load."""
+    from focr_tpu_torch.cli.focr import main as focr_main
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+
+    def load_ms(path, heights) -> float:
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            banks, _ = load_grid_bank(path)
+            for h in heights or sorted(banks):
+                banks[h]
+            ts.append((time.perf_counter() - t0) * 1e3)
+            banks.close()
+        return sorted(ts)[1]
+
+    result = {}
+    for name, (argv, want) in cases.items():
+        with recorded_bank_sets() as made:
+            out, _ = _run_cli(focr_main, argv)
+        if out != want:
+            raise AssertionError(f"banks: the {name} CLI's lines differ from focr_tpu's")
+        if len(made) != 1 or sorted(made[0].loads) != [3, 12] or len(made[0]) != 12:
+            raise AssertionError(f"banks: the {name} CLI decompressed crop heights "
+                                 f"{[m.loads for m in made]} of {len(made[0])}, not 12 and 3")
+        path = argv[argv.index("--grid-bank") + 1]
+        eager, lazy = load_ms(path, None), load_ms(path, (12, 3))
+        log(f"[banks] {name}: the CLI decompressed crop heights {made[0].loads} of 12; bank load "
+            f"ms (median of 3): every height {eager:.1f}, heights 12 and 3 {lazy:.1f}")
+        result[name] = {"loads": made[0].loads, "load_all_ms": eager, "load_used_ms": lazy}
+    return result
+
+
+def metrics_phase(cases: dict, pages, golden, want16: str) -> None:
+    """Phase 15: --metrics-json, --profile, --verbose-sync and the flags kept
+    for command-line compatibility."""
+    import re
+
+    from focr_tpu_torch.cli.focr import main as focr_main
+    from focr_tpu_torch.cli.ncc import main as ncc_main
+    from focr_tpu_torch.utils.metrics import TRACE_NAME
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _write_pages(tmp, pages)
+        ncc_argv = ["-i", *paths, "-f", FONT, "-t", "13", "--x-bits", "2", "--needle-bank",
+                    FIXTURE]
+        runs = (
+            ("focr", focr_main, *cases["focr"],
+             {"tool", "pages", "decoded_pages", "lines", "errors", "decode_seconds",
+              "pages_per_sec"}),
+            ("ncc", ncc_main, ncc_argv, want16,
+             {"tool", "pages", "decoded_pages", "lines", "hits", "errors", "search_seconds",
+              "engine"}),
+        )
+        for name, main, argv, want, keys in runs:
+            mpath, pdir = os.path.join(tmp, f"{name}.json"), os.path.join(tmp, f"{name}-trace")
+            out, _ = _run_cli(main, [*argv, "--metrics-json", mpath, "--profile", pdir])
+            if out != want:
+                raise AssertionError(f"metrics: --metrics-json/--profile changed {name}'s stdout")
+            with open(mpath) as f:
+                m = json.load(f)
+            if set(m) != keys or m["decoded_pages"] != len(pages) or m["tool"] != name:
+                raise AssertionError(f"metrics: {name} wrote {m}")
+            trace = os.path.join(pdir, TRACE_NAME)
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            named = sorted({k for e in events if e.get("cat") == "kernel"
+                            for k in re.findall(r"focr_\w+", e.get("name", ""))})
+            if not named:
+                raise AssertionError(f"metrics: {name}'s trace names no focr_ kernel")
+            spans = sorted({e["name"] for e in events if e.get("cat") == "user_annotation"
+                            and str(e.get("name")).startswith("focr_")})
+            log(f"[metrics] {name}: stdout unchanged; metrics {m}; trace "
+                f"{os.path.getsize(trace)} bytes, kernels {named}, spans {spans}")
+        out, err = _run_cli(ncc_main, ["-i", paths[0], *ncc_argv[1 + len(paths):],
+                                       "--verbose-sync"])
+        group_lines = [ln for ln in err.splitlines() if " group " in ln and ln.startswith("[")]
+        if out.splitlines() != golden[0] or len(group_lines) != 2 or not all(
+                "measured wall time, split evenly" in ln for ln in group_lines):
+            raise AssertionError(f"metrics: --verbose-sync printed {group_lines}")
+        log(f"[metrics] --verbose-sync on one golden page: its lines on stdout; {group_lines}")
+        out, _ = _run_cli(ncc_main, [*ncc_argv, "--device-kernel", "pallas", "--wire", "pos",
+                                     "--mesh", "auto"])
+        if out != want16:
+            raise AssertionError("metrics: --device-kernel/--wire/--mesh changed the stdout")
+        log("[metrics] --device-kernel pallas --wire pos --mesh auto: accepted, stdout unchanged")
+
+
+def overlays_phase(cases: dict) -> str | None:
+    """Phase 16: focr --verify and --test render with FreeType. Returns what
+    to print when this machine has none."""
+    import re
+
+    from focr_tpu_torch.cli.focr import main as focr_main
+    from focr_tpu_torch.fonts.ft import Face
+
+    argv, _ = cases["focr"]
+    n = argv.index("-f") - 1  # the pages
+    two = ["-i", *argv[1:3], *argv[1 + n:]]
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            Face(FONT)
+        except OSError as e:
+            try:
+                focr_main([*two, "--verify", tmp])
+            except OSError as e2:
+                if str(e2) != str(e):
+                    raise
+                log(f"[overlays] no FreeType here: --verify with --grid-bank raises Face's "
+                    f"error ({e2})")
+                return "no FreeType on this machine"
+            raise AssertionError("overlays: --verify ran without FreeType")
+        out, err = _run_cli(focr_main, [*two, "--verify", tmp])
+        lines = err.splitlines()
+        stems = [os.path.splitext(os.path.basename(p))[0] + ".png" for p in two[1:3]]
+        if sorted(os.listdir(tmp)) != sorted(stems) or len(lines) != 2 or not all(
+                re.fullmatch(re.escape(p) + r" \d+\.\d{6}", ln) for p, ln in zip(two[1:3], lines)):
+            raise AssertionError(f"overlays: --verify wrote {os.listdir(tmp)} and {lines}")
+        _run_cli(focr_main, ["-i", two[1], *two[3:], "--test", os.path.join(tmp, "t")])
+        if not all(os.path.getsize(os.path.join(tmp, f"t-{k}.png")) for k in ("rect", "text")):
+            raise AssertionError("overlays: --test did not write its two PNGs")
+        log(f"[overlays] --verify: {lines}; --test: t-rect.png, t-text.png")
+    return None
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1024,11 +1331,24 @@ def main() -> int:
     # 12. the ncc host library
     host_native = host_native_phase(matcher, pages, golden, host_build)
     host_native.update(host_build, ncc_cli_pages_per_s=len(pages) / wall)
+    # 13. the ncc pipeline on 64 pages
+    pipeline = pipeline_phase(matcher, pages, buf.getvalue(), card)
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = focr_cli_cases(tmp)
+        # 14. the lazy bank load
+        banks = banks_phase(cases)
+        # 15. metrics, traces and the remaining flags
+        metrics_phase(cases, pages, golden, buf.getvalue())
+        # 16. the overlays
+        no_overlays = overlays_phase(cases)
+    if no_overlays:
+        print(json.dumps({"overlays": no_overlays}), flush=True)
     print(json.dumps({"yardstick": "the correlation alone, not a library call of K1: "
                       "torch.nn.functional.conv2d, f32 inputs in TF32, on phase 3's wave and "
                       "needle groups (the port never calls it)",
                       "kernel": "ncc_sweep", "conv2d_tf32_ms": conv_ms}), flush=True)
-    print(json.dumps({"kernels": kernels, "host_native": host_native,
+    print(json.dumps({"kernels": kernels, "host_native": host_native, "pipeline": pipeline,
+                      "banks": banks,
                       "cli_pages_per_s": len(pages) / wall,
                       "cli_subprocess_pages_per_s": len(pages) / sub_wall,
                       "focr_cli_pages_per_s": focr_pps,

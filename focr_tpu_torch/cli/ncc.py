@@ -4,7 +4,8 @@
 stdout: decoded text lines (or --csv rows, or --raw hit dumps); stderr: all
 diagnostics. --rust routes to the host differential oracle, exactly like the
 reference's flag switches between the C and Rust kernels; --engine native runs
-the C++ host search (native/ncc_cpu.py).
+the C++ host search (native/ncc_cpu.py). --device-kernel and --wire are
+accepted and unused (one kernel, no wire codec).
 """
 
 from __future__ import annotations
@@ -52,12 +53,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="load the needles from a saved bank "
                         "(fonts/bank.py::save_needle_bank) instead of rendering "
                         "them with FreeType; its settings must match the flags")
+    p.add_argument("--device-kernel", choices=["auto", "xla", "pallas"], default="auto",
+                   help="accepted for command-line compatibility with focr_tpu and "
+                        "otherwise unused: this package has one device kernel")
+    p.add_argument("--wire", choices=["delta", "pos"], default=None,
+                   help="accepted for command-line compatibility with focr_tpu and "
+                        "otherwise unused: this package has no wire codec, candidate "
+                        "positions come back as they are")
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--verbose-sync", action="store_true",
+                   help="verbose with MEASURED per-search timing: fences the device "
+                        "after each size group's dispatch so elapsed/ns-per-pixel are "
+                        "wall-clock measurements like the reference's "
+                        "(ncc.rs:657-666); slower — the pipelined default prints "
+                        "estimates instead")
     p.add_argument("--csv", action="store_true")
     p.add_argument("--raw", action="store_true")
+    p.add_argument("--mesh", choices=["auto", "off"], default="auto",
+                   help="shard page batches over all visible cards (auto: on when >1 "
+                        "card; single-card runs are unaffected). Accepted; this package "
+                        "runs on one card and says so on stderr when it sees more")
     p.add_argument("--strict", action="store_true",
                    help="fail on the first unreadable page (reference panic semantics); "
                         "default isolates per-page errors to stderr and continues")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the search to DIR")
+    p.add_argument("--metrics-json", default=None, metavar="PATH",
+                   help="write structured run metrics (JSON) to PATH ('-' = stderr)")
     return p
 
 
@@ -81,13 +103,16 @@ def _verbose_metrics(face: Face, alphabet: str, text_size: float) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.verbose_sync:
+        args.verbose = True
     from focr_tpu_torch.fonts.bank import bank_settings, load_needle_bank
     from focr_tpu_torch.io.images import load_gray, save_gray
     from focr_tpu_torch.models.ncc import NccMatcher, _f32
     from focr_tpu_torch.models.post import (
         process_hits, process_hits_struct, process_hits_text,
     )
-    from focr_tpu_torch.utils.device import resolve_device
+    from focr_tpu_torch.utils.device import note_single_card, resolve_device
+    from focr_tpu_torch.utils.metrics import metrics_run, write_metrics
 
     hinting = HintingOptions(full=True, size=args.text_size) if args.hinting else HintingOptions()
     ropts = RenderOptions(size=args.text_size, hinting=hinting)
@@ -98,6 +123,8 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         print(f"ncc: error: {e}", file=sys.stderr)
         return 2
+    if engine == "device":
+        note_single_card("ncc", args.mesh, device)
 
     needles = None
     if args.needle_bank is not None:
@@ -109,10 +136,18 @@ def main(argv: list[str] | None = None) -> int:
                   f"the flags ask for {want}", file=sys.stderr)
             return 2
     # the font itself is opened only when something needs FreeType
-    need_face = needles is None or args.verbose or args.raw or args.save_letters
+    need_face = needles is None or args.raw or args.save_letters
     face = Face(args.font) if need_face else None
     if args.verbose:
-        _verbose_metrics(face, args.alphabet, args.text_size)
+        if face is None:
+            # a saved bank holds no font metrics: with no FreeType or no font
+            # file the dump is left out, and stderr says so
+            try:
+                face = Face(args.font)
+            except OSError as e:
+                print(f"ncc: font metrics not shown: {e}", file=sys.stderr)
+        if face is not None:
+            _verbose_metrics(face, args.alphabet, args.text_size)
 
     matcher = NccMatcher(
         face,
@@ -143,7 +178,11 @@ def main(argv: list[str] | None = None) -> int:
     }[engine]
     if args.raw:
         assert len(args.img) == 1
-        get(load_gray(args.img[0]), verbose=args.verbose, raw=True, out=sys.stdout)
+        page = load_gray(args.img[0])
+        if engine == "device":
+            get(page, verbose=args.verbose, raw=True, out=sys.stdout, sync=args.verbose_sync)
+        else:
+            get(page, verbose=args.verbose, raw=True, out=sys.stdout)
         return 0
 
     errors: list[tuple[int, str]] = []
@@ -158,30 +197,37 @@ def main(argv: list[str] | None = None) -> int:
             print(f"ERROR {path}: {type(e).__name__}: {e}", file=sys.stderr)
 
     # the array-form (struct) pipeline skips per-hit object creation; verbose
-    # diagnostics need the object form (per-hit dumps). --csv needs full
+    # diagnostics need the object form (per-hit dumps). Text output fuses
+    # post-processing into the pipeline's collect tasks (the reference's rayon
+    # (get_hits, process_hits) task shape, ncc.rs:842-845); --csv needs full
     # per-hit fields, so it post-processes to objects.
     struct = engine == "device" and not args.verbose
     pages = [p for _, p in loaded]
-    if engine == "device" and struct and not args.csv:
-        hit_lines = matcher.get_hits_many(
-            pages, struct=True,
-            post=lambda hs: process_hits_text(hs, args.anchor_threshold, args.overlap),
-        )
-    elif engine == "device" and struct:
-        hit_lines = [
-            process_hits_struct(h, args.anchor_threshold, args.overlap)
-            for h in matcher.get_hits_many(pages, struct=True)
-        ]
-    else:
-        hit_lists = (
-            matcher.get_hits_many(pages, verbose=args.verbose)
-            if engine == "device"
-            else [get(p, verbose=args.verbose) for p in pages]
-        )
-        hit_lines = [
-            process_hits(h, args.anchor_threshold, args.overlap, verbose=args.verbose)
-            for h in hit_lists
-        ]
+    with metrics_run(args.profile, device.type == "cuda") as mrun:
+        if engine == "device" and args.verbose_sync:
+            # measurement mode: per-page fenced dispatch, no pipeline, so the
+            # stderr timing lines are wall-clock truth
+            hit_lists = [matcher.get_hits(p, verbose=True, sync=True) for p in pages]
+        elif engine == "device" and struct and not args.csv:
+            hit_lists = matcher.get_hits_many(
+                pages, struct=True,
+                post=lambda hs: process_hits_text(hs, args.anchor_threshold, args.overlap),
+            )
+        elif engine == "device":
+            hit_lists = matcher.get_hits_many(pages, verbose=args.verbose, struct=struct)
+        else:
+            hit_lists = [get(p, verbose=args.verbose) for p in pages]
+        if struct and not args.csv:
+            hit_lines = hit_lists
+        elif struct:
+            hit_lines = [
+                process_hits_struct(h, args.anchor_threshold, args.overlap) for h in hit_lists
+            ]
+        else:
+            hit_lines = [
+                process_hits(h, args.anchor_threshold, args.overlap, verbose=args.verbose)
+                for h in hit_lists
+            ]
     lines_by_page = {i: h for (i, _), h in zip(loaded, hit_lines)}
     pages_out = [(i, lines_by_page.get(i, [])) for i in range(len(args.img))]
 
@@ -197,6 +243,19 @@ def main(argv: list[str] | None = None) -> int:
         for _, lines in pages_out:
             for line in lines:
                 print(line if isinstance(line, str) else "".join(m.letter for m in line))
+
+    if args.metrics_json is not None:
+        write_metrics(
+            args.metrics_json,
+            tool="ncc",
+            pages=len(args.img),
+            decoded_pages=len(args.img) - len(errors),
+            lines=sum(len(ls) for _, ls in pages_out),
+            hits=sum(len(m) for _, ls in pages_out for m in ls),
+            errors=[{"page": args.img[i], "error": e} for i, e in errors],
+            search_seconds=mrun.seconds,
+            engine=engine,
+        )
     return 0
 
 

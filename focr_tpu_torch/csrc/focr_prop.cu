@@ -93,7 +93,7 @@ __device__ __forceinline__ void reduce_scatter32(uint32_t (&v)[32], int lane)
 }
 
 __global__ void __launch_bounds__(MAXW * 32)
-prop_scan_kernel(const uint8_t* __restrict__ strips, int h, int crop_w,
+focr_prop_scan_kernel(const uint8_t* __restrict__ strips, int h, int crop_w,
                  const uint32_t* __restrict__ tw, int kwp,
                  const int32_t* __restrict__ colsq, const float* __restrict__ adv,
                  int G, int wbank, int base, float ox, int n_steps,
@@ -217,7 +217,7 @@ extern "C" int focr_prop_scan(const void* strips, int L, int h, int crop_w,
 {
     if (kwp % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
     const int warps = min((G + 31) / 32, MAXW);
-    prop_scan_kernel<<<static_cast<unsigned>(L), warps * 32, static_cast<size_t>(kwp) * 4,
+    focr_prop_scan_kernel<<<static_cast<unsigned>(L), warps * 32, static_cast<size_t>(kwp) * 4,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(strips), h, crop_w, static_cast<const uint32_t*>(tw), kwp,
         static_cast<const int32_t*>(colsq), static_cast<const float*>(adv), G, wbank, base, ox,

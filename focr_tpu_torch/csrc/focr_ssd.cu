@@ -113,7 +113,7 @@ __device__ __forceinline__ void quad_min(long long& best, int& bg)
 }
 
 __global__ void __launch_bounds__(NWARPS * 32)
-ssd_argmin_mma(const uint8_t* __restrict__ strips, long long n_strips, int h, int crop_w,
+focr_ssd_argmin_mma(const uint8_t* __restrict__ strips, long long n_strips, int h, int crop_w,
                const uint2* __restrict__ bfrag, const int64_t* __restrict__ tsq,
                const int32_t* __restrict__ wx0, int C, int G, int win_w, int nks, int pitch,
                int32_t* __restrict__ ids, bool* __restrict__ white)
@@ -254,7 +254,7 @@ ssd_argmin_mma(const uint8_t* __restrict__ strips, long long n_strips, int h, in
 }
 
 __global__ void __launch_bounds__(WARPS64 * 32)
-ssd_argmin_int64(const uint8_t* __restrict__ strips, int h, int crop_w,
+focr_ssd_argmin_int64(const uint8_t* __restrict__ strips, int h, int crop_w,
                  const uint8_t* __restrict__ tmpl, const int64_t* __restrict__ tsq,
                  const int32_t* __restrict__ wx0, int C, int G, int win_w,
                  int32_t* __restrict__ ids, bool* __restrict__ white)
@@ -321,19 +321,19 @@ extern "C" int focr_ssd_argmin(const void* strips, long long n_strips, int h, in
     if (static_cast<long long>(h) * win_w * 65025LL < (1LL << 31) && smem <= SMEM_MAX) {
         if (smem > 48 * 1024) {
             const cudaError_t e = cudaFuncSetAttribute(
-                ssd_argmin_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                focr_ssd_argmin_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
                 static_cast<int>(smem));
             if (e != cudaSuccess) return static_cast<int>(e);
         }
         // blocks: an M-tile of strips x NWARPS cells (a cell a warp)
         const dim3 grid(static_cast<unsigned>((n_strips + MS - 1) / MS), (C + NWARPS - 1) / NWARPS);
-        ssd_argmin_mma<<<grid, NWARPS * 32, smem, st>>>(
+        focr_ssd_argmin_mma<<<grid, NWARPS * 32, smem, st>>>(
             static_cast<const uint8_t*>(strips), n_strips, h, crop_w,
             static_cast<const uint2*>(bfrag), static_cast<const int64_t*>(tsq),
             static_cast<const int32_t*>(wx0), C, G, win_w, nks, pitch,
             static_cast<int32_t*>(ids), static_cast<bool*>(white));
     } else {
-        ssd_argmin_int64<<<static_cast<unsigned>(n_strips), WARPS64 * 32, 0, st>>>(
+        focr_ssd_argmin_int64<<<static_cast<unsigned>(n_strips), WARPS64 * 32, 0, st>>>(
             static_cast<const uint8_t*>(strips), h, crop_w, static_cast<const uint8_t*>(tmpl),
             static_cast<const int64_t*>(tsq), static_cast<const int32_t*>(wx0), C, G, win_w,
             static_cast<int32_t*>(ids), static_cast<bool*>(white));

@@ -74,7 +74,7 @@ __device__ __forceinline__ long long warp_incl_scan(long long v, int lane)
 // sum of every row count up to the end of chunk k. tickets[0] hands out the
 // chunks, tickets[1] counts finished blocks. Both zeroed by the caller.
 __global__ void __launch_bounds__(CT)
-ncc_count_kernel(const int32_t* __restrict__ rcnt, long long rows, int segs, int Hs, int T,
+focr_ncc_count_kernel(const int32_t* __restrict__ rcnt, long long rows, int segs, int Hs, int T,
                  int B, int64_t* __restrict__ row_off, int64_t* __restrict__ off,
                  int32_t* __restrict__ hcnt, int32_t* __restrict__ nz,
                  unsigned long long* __restrict__ look, unsigned int* __restrict__ tickets)
@@ -169,7 +169,7 @@ ncc_count_kernel(const int32_t* __restrict__ rcnt, long long rows, int segs, int
 }
 
 __global__ void __launch_bounds__(EWARPS * 32)
-ncc_emit_kernel(const int32_t* __restrict__ mask, const int32_t* __restrict__ rcnt,
+focr_ncc_emit_kernel(const int32_t* __restrict__ mask, const int32_t* __restrict__ rcnt,
                 const int64_t* __restrict__ row_off, int32_t* __restrict__ pos,
                 long long rows, int Hs, int NW)
 {
@@ -219,7 +219,7 @@ extern "C" int focr_ncc_compact_count(const void* rcnt, int B, int T, int Hs, vo
 {
     const long long rows = static_cast<long long>(B) * T * Hs;
     const long long blocks = (rows + CHUNK - 1) / CHUNK;
-    ncc_count_kernel<<<static_cast<unsigned>(blocks), CT, 0,
+    focr_ncc_count_kernel<<<static_cast<unsigned>(blocks), CT, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(rcnt), rows, B * T, Hs, T, B,
         static_cast<int64_t*>(row_off), static_cast<int64_t*>(off),
@@ -235,7 +235,7 @@ extern "C" int focr_ncc_compact(const void* mask, const void* rcnt, const void* 
                                 void* pos, long long rows, int Hs, int NW, void* stream)
 {
     const long long blocks = (rows + 32 * EWARPS - 1) / (32 * EWARPS);
-    ncc_emit_kernel<<<static_cast<unsigned>(blocks), EWARPS * 32, 0,
+    focr_ncc_emit_kernel<<<static_cast<unsigned>(blocks), EWARPS * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(mask), static_cast<const int32_t*>(rcnt),
         static_cast<const int64_t*>(row_off), static_cast<int32_t*>(pos), rows, Hs, NW);

@@ -29,6 +29,8 @@
 #include <limits>
 #include <vector>
 
+#include <omp.h>
+
 namespace {
 
 struct FMatch {
@@ -192,11 +194,11 @@ void replay_impl(
     double threshold, int64_t row_len,
     int64_t max_matches,
     int32_t* out_x, int32_t* out_y, float* out_sim,
-    int32_t* out_counts, uint8_t* out_warn) {
+    int32_t* out_counts, uint8_t* out_warn, int team) {
     const double n_recip = 1.0 / static_cast<double>(n_w * n_h);
     const double nd = static_cast<double>(n_w * n_h);
     constexpr int CH = 2048;  // candidates per two-phase chunk
-#pragma omp parallel for schedule(dynamic)
+#pragma omp parallel for schedule(dynamic) num_threads(team)
     for (int64_t t = 0; t < n_needles; ++t) {
         const uint8_t* needle = bank + t * n_h * n_w;
         const double s_n = static_cast<double>(s_n_arr[t]);
@@ -271,7 +273,9 @@ extern "C" {
 // needle in ascending order as the device returns them; starts/ends give
 // each needle's candidate range. Outputs are written at each needle's own
 // offset starts[t] (capacity: one hit per candidate), so needles run in
-// parallel with no shared state (OpenMP). warn[t] is set when the needle
+// parallel with no shared state (OpenMP, in a team of n_threads; 0 or less:
+// the runtime's default team). Callers that replay several pages at once
+// size the team to their share of the cores. warn[t] is set when the needle
 // kept >= max_matches hits, the reference's WARN condition.
 void focr_ncc_replay_pos_u8(
     const uint8_t* ref, int64_t r_w, int64_t r_h,
@@ -282,14 +286,15 @@ void focr_ncc_replay_pos_u8(
     double threshold, int64_t row_len,
     int64_t max_matches,
     int32_t* out_x, int32_t* out_y, float* out_sim,
-    int32_t* out_counts, uint8_t* out_warn) {
+    int32_t* out_counts, uint8_t* out_warn, int64_t n_threads) {
+    const int team = n_threads > 0 ? static_cast<int>(n_threads) : omp_get_max_threads();
     switch (n_w) {
 #define FOCR_REPLAY_CASE(NW)                                              \
     case NW:                                                              \
         replay_impl<NW>(ref, r_w, r_h, pos, starts, ends,                 \
                         n_needles, bank, n_w, n_h, s_n_arr, s2_n_arr,     \
                         threshold, row_len, max_matches,                  \
-                        out_x, out_y, out_sim, out_counts, out_warn);     \
+                        out_x, out_y, out_sim, out_counts, out_warn, team); \
         break;
         FOCR_REPLAY_CASE(4)
         FOCR_REPLAY_CASE(5)
@@ -309,7 +314,7 @@ void focr_ncc_replay_pos_u8(
             replay_impl<0>(ref, r_w, r_h, pos, starts, ends,
                            n_needles, bank, n_w, n_h, s_n_arr, s2_n_arr,
                            threshold, row_len, max_matches,
-                           out_x, out_y, out_sim, out_counts, out_warn);
+                           out_x, out_y, out_sim, out_counts, out_warn, team);
     }
 }
 

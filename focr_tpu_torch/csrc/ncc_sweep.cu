@@ -156,7 +156,7 @@ __device__ __forceinline__ bool keep_test(int acc, float sn, float rtn, float sp
 
 template <int MODE, bool ASMEM>
 __global__ void __launch_bounds__(NTHREADS)
-ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
+focr_ncc_sweep_kernel(const uint8_t* __restrict__ imgs, int H, int W,
                  const uint4* __restrict__ afrag, int T, int nh, int nw, int nks,
                  const float* __restrict__ sn_n, const float* __restrict__ rtn,
                  float thr_eps, float inv_n,
@@ -403,8 +403,8 @@ extern "C" int focr_ncc_sweep(const void* imgs, int B, int H, int W,
     const bool a_smem = band + a_bytes <= SMEM_MAX;
     const size_t smem = band + (a_smem ? a_bytes : 0);
     auto kernel = wide
-        ? (a_smem ? ncc_sweep_kernel<WIDE, true> : ncc_sweep_kernel<WIDE, false>)
-        : (a_smem ? ncc_sweep_kernel<NARROW, true> : ncc_sweep_kernel<NARROW, false>);
+        ? (a_smem ? focr_ncc_sweep_kernel<WIDE, true> : focr_ncc_sweep_kernel<WIDE, false>)
+        : (a_smem ? focr_ncc_sweep_kernel<NARROW, true> : focr_ncc_sweep_kernel<NARROW, false>);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

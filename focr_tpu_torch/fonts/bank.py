@@ -1,21 +1,26 @@
 """Template banks: every glyph rendered once at startup, matched on the device.
 
-focr_tpu/fonts/bank.py minus its disk cache (the canonical banks render in a
-second or two): the grid bank (GridBank, build_grid_bank — :28-173) for
-monospace alphabets, the 64-phase proportional bank (PropBank,
-build_prop_bank — :181-298) and the ncc needles (:307-454).
+Counterpart of focr_tpu/fonts/bank.py: the grid bank (GridBank,
+build_grid_bank — :28-173) for monospace alphabets, the 64-phase proportional
+bank (PropBank, build_prop_bank — :181-298) and the ncc needles (:307-454),
+each rendered once and kept in the disk cache (utils/cache.py) under the key
+parameters focr_tpu uses.
 
 Every bank can also be saved to and loaded from an .npz file
 (save_grid_bank / load_grid_bank, save_needle_bank / load_needle_bank), so a
 machine without FreeType can decode with glyphs rendered elsewhere. A saved
 focr bank set holds one grid or proportional bank per crop height (its
-settings name the kind), so every page height on its grid is served.
+settings name the kind), so every page height on its grid is served; it loads
+lazily (BankSet): a crop height is decompressed when a decoder first asks for
+it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
+from collections.abc import Iterator, Mapping
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +28,7 @@ import numpy as np
 from focr_tpu_torch.fonts.ft import Canvas, Face, RectF
 from focr_tpu_torch.models.types import BoxSize, RenderOptions
 from focr_tpu_torch.oracle.focr_oracle import advance_px, alphabet_origin
+from focr_tpu_torch.utils import cache
 
 
 @dataclass(frozen=True)
@@ -90,6 +96,28 @@ def build_grid_bank(
     """
     if not is_monospace(face, alphabet, ropts):
         raise ValueError("grid bank requires a monospace alphabet (use the sequential fallback)")
+    key = cache.bank_key(
+        "grid",
+        face.path,
+        size=ropts.size,
+        kern_x=ropts.kern_x,
+        hinting=(ropts.hinting.full, ropts.hinting.size),
+        alphabet=alphabet,
+        crop_w=crop_w,
+        crop_h=crop_h,
+    )
+    if (hit := cache.load_arrays(key)) is not None:
+        return GridBank(
+            alphabet=alphabet,
+            templates=hit["templates"],
+            tsq=hit["tsq"],
+            wx0=hit["wx0"],
+            positions=hit["positions"],
+            crop_w=crop_w,
+            crop_h=crop_h,
+            monospace=True,
+        )
+
     gids = [face.glyph_for_char(c) for c in alphabet]
     ox, oy = alphabet_origin(face, alphabet, ropts)
     positions = cursor_positions(face, alphabet, ropts, crop_w)
@@ -135,6 +163,9 @@ def build_grid_bank(
     # keep the compact i32 when safe, widen otherwise
     if tsq.max() < 2**31:
         tsq = tsq.astype(np.int32)
+    cache.store_arrays(
+        key, {"templates": templates, "tsq": tsq, "wx0": wx0, "positions": positions}
+    )
     return GridBank(
         alphabet=alphabet,
         templates=templates,
@@ -177,11 +208,34 @@ class PropBank:
 
 
 def build_prop_bank(face: Face, alphabet: str, ropts: RenderOptions, crop_h: int) -> PropBank:
-    """Rasterize the G×64 phase bank for one crop height."""
+    """Rasterize the G×64 phase bank for one crop height (cached on disk
+    like the grid bank)."""
     P = PROP_PHASES
     gids = [face.glyph_for_char(c) for c in alphabet]
     ox, oy = alphabet_origin(face, alphabet, ropts)
     advances = np.array([advance_px(face, g, ropts) for g in gids], dtype=np.float32)
+
+    key = cache.bank_key(
+        "prop",
+        face.path,
+        size=ropts.size,
+        kern_x=ropts.kern_x,
+        hinting=(ropts.hinting.full, ropts.hinting.size),
+        alphabet=alphabet,
+        crop_h=crop_h,
+        phases=P,
+    )
+    if (hit := cache.load_arrays(key)) is not None:
+        return PropBank(
+            alphabet=alphabet,
+            templates=hit["templates"],
+            colsq_cum=hit["colsq_cum"],
+            advances=advances,
+            base=int(hit["base"][0]),
+            ox=ox,
+            oy=oy,
+            crop_h=crop_h,
+        )
 
     # canvas extent: union of raster bounds over glyphs and phases, ±2 px of
     # slack (actual ink can exceed the metrics-derived bounds by a pixel)
@@ -207,10 +261,14 @@ def build_prop_bank(face: Face, alphabet: str, ropts: RenderOptions, crop_h: int
     colsq_cum = np.zeros((G, P, wbank + 1), dtype=np.int64)
     np.cumsum(colsq, axis=2, out=colsq_cum[:, :, 1:])
     assert colsq_cum.max() < 2**31
+    colsq_cum = colsq_cum.astype(np.int32)
+    cache.store_arrays(
+        key, {"templates": templates, "colsq_cum": colsq_cum, "base": np.array([base])}
+    )
     return PropBank(
         alphabet=alphabet,
         templates=templates,
-        colsq_cum=colsq_cum.astype(np.int32),
+        colsq_cum=colsq_cum,
         advances=advances,
         base=base,
         ox=ox,
@@ -293,38 +351,93 @@ def save_grid_bank(path: str, banks: list[FocrBank], settings: dict) -> None:
     np.savez_compressed(path, **grid_bank_arrays(banks, settings))
 
 
-def load_grid_bank(path: str) -> tuple[dict[int, FocrBank], dict]:
-    """({crop_h: GridBank or PropBank}, the settings the banks were rendered
-    with). A set saved without a kind is a grid set."""
-    with np.load(path, allow_pickle=False) as z:
-        settings = json.loads(str(z["grid_bank_settings"]))
-        settings.setdefault("kind", "grid")
-        prefix = "grid_h" if settings["kind"] == "grid" else "prop_h"
-        heights = sorted(
-            int(k[len(prefix) : -len("_templates")])
-            for k in z.files
-            if k.startswith(prefix) and k.endswith("_templates")
+class BankSet(Mapping):
+    """A saved focr bank set as a read-only mapping {crop height: GridBank or
+    PropBank} that decompresses a height when it is first asked for and keeps
+    it. The settings and the member names are read when the set is opened,
+    so ``set(banks)``, ``len`` and ``in`` decompress nothing; ``kind`` is the
+    settings' "grid" or "prop". ``loads`` lists the heights decompressed so
+    far, in order. The .npz handle stays open as long as the set lives;
+    ``close`` (or the set's end of life) releases it, after which only the
+    heights already loaded can be read. The decoders may ask from worker
+    threads: a lock guards each first load."""
+
+    def __init__(self, path: str):
+        self._z = np.load(path, allow_pickle=False)
+        try:
+            self.settings = json.loads(str(self._z["grid_bank_settings"]))
+        except BaseException:
+            self._z.close()
+            raise
+        self.settings.setdefault("kind", "grid")  # a set saved without a kind is a grid set
+        self.kind: str = self.settings["kind"]
+        self._prefix = "grid_h" if self.kind == "grid" else "prop_h"
+        self._heights = sorted(
+            int(k[len(self._prefix) : -len("_templates")])
+            for k in self._z.files
+            if k.startswith(self._prefix) and k.endswith("_templates")
         )
-        banks: dict[int, FocrBank] = {}
-        for h in heights:
-            if settings["kind"] == "grid":
-                banks[h] = GridBank(
-                    alphabet=settings["alphabet"],
-                    templates=z[f"grid_h{h}_templates"],
-                    tsq=z[f"grid_h{h}_tsq"],
-                    wx0=z[f"grid_h{h}_wx0"],
-                    positions=z[f"grid_h{h}_positions"],
-                    crop_w=settings["crop_w"],
-                    crop_h=h,
-                    monospace=True,
-                )
-            else:
-                ox, oy = z[f"prop_h{h}_origin"]
-                banks[h] = prop_bank_from_arrays(
-                    settings["alphabet"], z[f"prop_h{h}_templates"], z[f"prop_h{h}_colsq_cum"],
-                    z[f"prop_h{h}_advances"], z[f"prop_h{h}_base"][0], ox, oy, h,
-                )
-    return banks, settings
+        self._banks: dict[int, FocrBank] = {}
+        self._lock = threading.Lock()
+        self.loads: list[int] = []
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(self._heights)
+
+    def __len__(self) -> int:
+        return len(self._heights)
+
+    def __contains__(self, h) -> bool:
+        return h in self._heights
+
+    def __getitem__(self, h: int) -> FocrBank:
+        with self._lock:
+            bank = self._banks.get(h)
+            if bank is None:
+                if h not in self._heights:
+                    raise KeyError(h)
+                if self._z is None:
+                    raise ValueError(f"focr bank set: closed before crop height {h} was loaded")
+                bank = self._banks[h] = self._load(h)
+                self.loads.append(h)
+            return bank
+
+    def _load(self, h: int) -> FocrBank:
+        z, s = self._z, self.settings
+        if self.kind == "grid":
+            return GridBank(
+                alphabet=s["alphabet"],
+                templates=z[f"grid_h{h}_templates"],
+                tsq=z[f"grid_h{h}_tsq"],
+                wx0=z[f"grid_h{h}_wx0"],
+                positions=z[f"grid_h{h}_positions"],
+                crop_w=s["crop_w"],
+                crop_h=h,
+                monospace=True,
+            )
+        ox, oy = z[f"prop_h{h}_origin"]
+        return prop_bank_from_arrays(
+            s["alphabet"], z[f"prop_h{h}_templates"], z[f"prop_h{h}_colsq_cum"],
+            z[f"prop_h{h}_advances"], z[f"prop_h{h}_base"][0], ox, oy, h,
+        )
+
+    def close(self) -> None:
+        with self._lock:
+            if self._z is not None:
+                self._z.close()
+                self._z = None
+
+    def __del__(self):
+        z = getattr(self, "_z", None)
+        if z is not None:
+            z.close()
+
+
+def load_grid_bank(path: str) -> tuple[BankSet, dict]:
+    """(the saved set as a lazy {crop_h: GridBank or PropBank} mapping, the
+    settings the banks were rendered with)."""
+    banks = BankSet(path)
+    return banks, banks.settings
 
 
 @dataclass(frozen=True)
@@ -428,7 +541,31 @@ def build_needles(
     padding: tuple[int, int] = (0, 0),
 ) -> list[Needle]:
     """All (offset × letter) needles in reference iteration order
-    (offsets outer, letters inner — ncc.rs:587-655)."""
+    (offsets outer, letters inner — ncc.rs:587-655), cached on disk."""
+    key = cache.bank_key(
+        "needles",
+        face.path,
+        size=ropts.size,
+        hinting=(ropts.hinting.full, ropts.hinting.size),
+        alphabet=alphabet,
+        box=box_size.value,
+        x_bits=x_bits,
+        y_bits=y_bits,
+        padding=padding,
+    )
+    if (hit := cache.load_arrays(key)) is not None:
+        return [
+            Needle(
+                letter=str(hit["letters"][i]),
+                offset=(float(hit["offsets"][i, 0]), float(hit["offsets"][i, 1])),
+                corrected_offset=(float(hit["corrected"][i, 0]), float(hit["corrected"][i, 1])),
+                pixels=hit[f"px{i}"],
+                s_n=int(hit["s_n"][i]),
+                s2_n=int(hit["s2_n"][i]),
+            )
+            for i in range(int(hit["n"][0]))
+        ]
+
     needles: list[Needle] = []
     for offset in offsets_grid(x_bits, y_bits):
         y_off, canvas_size = _box_for_offset(face, alphabet, ropts, box_size, offset)
@@ -436,6 +573,17 @@ def build_needles(
         for letter in alphabet:
             px = render_needle(face, letter, corrected, ropts, canvas_size, padding)
             needles.append(_needle(letter, offset, corrected, px))
+    arrays: dict[str, np.ndarray] = {
+        "n": np.array([len(needles)]),
+        "letters": np.array([nd.letter for nd in needles]),
+        "offsets": np.array([nd.offset for nd in needles], dtype=np.float64),
+        "corrected": np.array([nd.corrected_offset for nd in needles], dtype=np.float64),
+        "s_n": np.array([nd.s_n for nd in needles], dtype=np.int64),
+        "s2_n": np.array([nd.s2_n for nd in needles], dtype=np.int64),
+    }
+    for i, nd in enumerate(needles):
+        arrays[f"px{i}"] = nd.pixels
+    cache.store_arrays(key, arrays)
     return needles
 
 

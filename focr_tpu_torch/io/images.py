@@ -22,7 +22,8 @@ and Paeth filters depend on the byte just decoded to their left, so a
 filtered PNG is unfiltered in the ncc host library (csrc/ncc_host.cpp::
 focr_png_unfilter); ``unfilter_reference`` is its plain NumPy version. Other
 formats (JPEG, TIFF, ...) go through Pillow where it is installed and raise
-where it is not. ``save_gray`` writes .pgm and .png itself.
+where it is not. ``save_gray`` writes .pgm and .png itself, ``save_rgb`` and
+``save_rgba`` .png (colour types 2 and 6).
 
 Batching (focr): pages are grouped into same-shape buckets, decoded a batch
 at a time.
@@ -354,22 +355,20 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
             + zlib.crc32(kind + body).to_bytes(4, "big"))
 
 
-def save_gray(path: str, img: np.ndarray) -> None:
-    """Write u8 [H, W]: binary PGM for a .pgm path, 8-bit gray PNG (one
-    IDAT, every row unfiltered) for a .png path, Pillow otherwise."""
+def _save_png(path: str, img: np.ndarray, channels: int, colour_type: int, mode: str) -> None:
+    """Write u8 [H, W] (channels == 1) or [H, W, channels] as an 8-bit PNG of
+    ``colour_type`` (one IDAT, every row unfiltered) for a .png path, through
+    Pillow (its ``mode``) for any other."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
-    H, W = img.shape
-    if path.lower().endswith(".pgm"):
-        with open(path, "wb") as f:
-            f.write(b"P5\n%d %d\n255\n" % (W, H))
-            f.write(img.tobytes())
-        return
+    if img.ndim < 2 or img.shape[2:] != ((channels,) if channels > 1 else ()):
+        raise ValueError(f"{path}: a {mode} image of shape {img.shape}")
+    H, W = img.shape[:2]
     if path.lower().endswith(".png"):
-        rows = np.zeros((H, W + 1), np.uint8)
-        rows[:, 1:] = img
+        rows = np.zeros((H, W * channels + 1), np.uint8)
+        rows[:, 1:] = img.reshape(H, W * channels)
         with open(path, "wb") as f:
             f.write(_PNG_SIGNATURE
-                    + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+                    + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour_type, 0, 0, 0))
                     + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
                     + _png_chunk(b"IEND", b""))
         return
@@ -379,7 +378,32 @@ def save_gray(path: str, img: np.ndarray) -> None:
         raise ValueError(
             f"{path}: writing anything but .pgm and .png needs Pillow, which is not installed"
         ) from None
-    Image.fromarray(img, mode="L").save(path)
+    Image.fromarray(img, mode=mode).save(path)
+
+
+def save_gray(path: str, img: np.ndarray) -> None:
+    """Write u8 [H, W]: binary PGM for a .pgm path, 8-bit gray PNG (one
+    IDAT, every row unfiltered) for a .png path, Pillow otherwise."""
+    if path.lower().endswith(".pgm"):
+        img = np.ascontiguousarray(img, dtype=np.uint8)
+        H, W = img.shape
+        with open(path, "wb") as f:
+            f.write(b"P5\n%d %d\n255\n" % (W, H))
+            f.write(img.tobytes())
+        return
+    _save_png(path, img, 1, 0, "L")
+
+
+def save_rgb(path: str, img: np.ndarray) -> None:
+    """Write u8 [H, W, 3]: 8-bit truecolour PNG (colour type 2) for a .png
+    path, Pillow otherwise (focr_tpu/io/images.py:74-75)."""
+    _save_png(path, img, 3, 2, "RGB")
+
+
+def save_rgba(path: str, img: np.ndarray) -> None:
+    """Write u8 [H, W, 4]: 8-bit truecolour PNG with alpha (colour type 6)
+    for a .png path, Pillow otherwise (focr_tpu/io/images.py:78-79)."""
+    _save_png(path, img, 4, 6, "RGBA")
 
 
 @dataclass(frozen=True)

@@ -22,6 +22,7 @@ carried over.
 from __future__ import annotations
 
 from collections import OrderedDict
+from collections.abc import Mapping
 from dataclasses import dataclass
 
 import numpy as np
@@ -123,7 +124,8 @@ class GridDecoder:
 
     ``device`` is explicit ("cuda" runs K4 or K5, "cpu" their plain
     versions). ``banks``: a preloaded bank set {crop_h: GridBank or PropBank}
-    (fonts/bank.py::load_grid_bank) for the alphabet; with it no glyph is
+    (fonts/bank.py::load_grid_bank, which loads each height when it is first
+    asked for, or a plain dict) for the alphabet; with it no glyph is
     rendered, ``face`` may be None, and the set's kind decides the path (a
     saved grid bank is monospace by construction)."""
 
@@ -135,7 +137,7 @@ class GridDecoder:
         ropts: RenderOptions,
         page_shape: tuple[int, int],
         device: str | torch.device,
-        banks: dict[int, FocrBank] | None = None,
+        banks: Mapping[int, FocrBank] | None = None,
     ):
         if face is None and banks is None:
             raise ValueError("GridDecoder: needs a face or a preloaded bank set")
@@ -152,7 +154,13 @@ class GridDecoder:
         if not alphabet:
             self.monospace = True
         elif banks is not None:
-            self.monospace = not any(isinstance(b, PropBank) for b in banks.values())
+            # a loaded set names its kind; walking its values would decompress
+            # every crop height
+            kind = getattr(banks, "kind", None)
+            self.monospace = (
+                kind == "grid" if kind is not None
+                else not any(isinstance(b, PropBank) for b in banks.values())
+            )
         else:
             self.monospace = is_monospace(face, alphabet, ropts)
         self._codes = np.array([ord(c) for c in alphabet], dtype=np.uint32)
@@ -332,7 +340,7 @@ def decode_pages(
     ropts: RenderOptions,
     device: str | torch.device,
     batch_size: int = 16,
-    banks: dict[int, FocrBank] | None = None,
+    banks: Mapping[int, FocrBank] | None = None,
 ) -> list[list[DecodedLine]]:
     """Decode a heterogeneous page list: bucket by shape, batch, reassemble.
 

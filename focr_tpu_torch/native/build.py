@@ -219,6 +219,7 @@ def load_host() -> ctypes.CDLL:
                 p, p,  # s_n, s2_n
                 ctypes.c_double, i64, i64,  # threshold, row_len, max_matches
                 p, p, p, p, p,  # out x, y, sim, counts, warn
+                i64,  # OpenMP team size (0: the runtime's default)
             ]
             lib.focr_ncc_replay_pos_u8.restype = None
             for fn in (lib.focr_post_winners, lib.focr_post_sort_winners):

@@ -35,6 +35,11 @@ NATIVE_CALLS = {
     "post_sort_winners": 0,
 }
 _calls_lock = threading.Lock()  # collect threads count concurrently
+# OpenMP threads of one replay_group call. The matcher replays
+# models/ncc.py::COLLECT_THREADS pages at once, so a call's team is its share
+# of the cores, not all of them: the two constants are sized together
+# (PERF.md has the card's host's numbers). 0 is the runtime's default team.
+REPLAY_TEAM = 2
 
 # csrc/ncc_host.cpp's FMatch {uint16 x, uint16 y, float similarity}
 _FMATCH = np.dtype([("x", "<u2"), ("y", "<u2"), ("similarity", "<f4")])
@@ -181,7 +186,7 @@ def replay_group(
         _ptr(inv), W, H, _ptr(pos), _ptr(starts), _ptr(ends), T,
         _ptr(bank), n_w, n_h, _ptr(s_n), _ptr(s2_n),
         float(thr_f64), int(row_len), int(max_matches),
-        _ptr(out_x), _ptr(out_y), _ptr(out_sim), _ptr(counts), _ptr(warn),
+        _ptr(out_x), _ptr(out_y), _ptr(out_sim), _ptr(counts), _ptr(warn), REPLAY_TEAM,
     )
     return out_x, out_y, out_sim, counts, warn
 

@@ -38,3 +38,16 @@ def card_label() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
+
+
+def note_single_card(tool: str, mesh: str, device: torch.device) -> None:
+    """The CLIs' ``--mesh auto`` policy on this package: with one visible
+    card it does nothing, as focr_tpu's auto_mesh does on one device
+    (focr_tpu/parallel/mesh.py:51-58). With more than one card visible the
+    run still takes one card and says so in one stderr line: the multi-card
+    path is not part of this package yet."""
+    if mesh == "auto" and device.type == "cuda" and torch.cuda.device_count() > 1:
+        import sys
+
+        print(f"{tool}: {torch.cuda.device_count()} CUDA cards are visible; this run uses "
+              f"one ({device}), sharding over cards is not available yet", file=sys.stderr)

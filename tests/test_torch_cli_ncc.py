@@ -2,6 +2,8 @@
 focr_tpu's, on the same pages: stdout byte for byte for the text, --csv and
 --raw outputs."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -143,3 +145,136 @@ def test_cli_unreadable_page_isolated(pages, mono_font_path, tmp_path, capsys):
     assert rc == 0 and out == want and "ERROR" in err
     with pytest.raises(ValueError):
         torch_main([*argv, "--strict"])
+
+
+# --- the flags ported last: --verbose-sync, --device-kernel, --wire, --mesh,
+# --profile, --metrics-json -------------------------------------------------
+
+
+def test_parser_takes_every_flag_of_focr_tpus():
+    from focr_tpu.cli.ncc import build_parser as jax_parser
+    from focr_tpu_torch.cli.ncc import build_parser as torch_parser
+
+    def options(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+
+    ours, theirs = options(torch_parser()), options(jax_parser())
+    assert theirs <= ours
+    assert ours - theirs == {"--device", "--needle-bank"}
+
+
+@pytest.mark.parametrize("extra", [[], ["--csv"], ["--engine", "native"], ["--rust"]],
+                         ids=["text", "csv", "native", "rust"])
+def test_metrics_json_matches_focr_tpu(pages, mono_font_path, capsys, tmp_path, extra):
+    """--metrics-json: focr_tpu's keys, and its counts for the same argv, with
+    an unreadable page among the pages."""
+    import json
+
+    bad = tmp_path / "bad.pgm"
+    bad.write_bytes(b"P5\n10 10\n255\n\x00")
+    argv = ["-i", pages[0], str(bad), pages[1], "-f", mono_font_path, "-t", "13", "-a", ALPHA,
+            *extra]
+    _, want_out, _ = _run(jax_main, [*argv, "--metrics-json", str(tmp_path / "j.json")], capsys)
+    _, got_out, _ = _run(torch_main, [*argv, "--device", "cpu", "--metrics-json",
+                                      str(tmp_path / "t.json")], capsys)
+    assert got_out == want_out and got_out
+    want = json.loads((tmp_path / "j.json").read_text())
+    got = json.loads((tmp_path / "t.json").read_text())
+    assert set(got) == set(want) == {"tool", "pages", "decoded_pages", "lines", "hits", "errors",
+                                     "search_seconds", "engine"}
+    for k in ("tool", "pages", "decoded_pages", "lines", "hits", "engine"):
+        assert got[k] == want[k], k
+    assert got["pages"] == 3 and got["decoded_pages"] == 2 and got["hits"] > 0
+    assert [e["page"] for e in got["errors"]] == [e["page"] for e in want["errors"]] == [str(bad)]
+    assert got["search_seconds"] > 0
+
+
+def _masked(err: str) -> str:
+    """stderr with the numbers masked (times differ run to run) and the word
+    before "group" dropped: it names the engine's kernel, focr_tpu's "pallas"
+    or nothing, the port's device."""
+    err = re.sub(r"^\[(\w+ )?group ", "[group ", err, flags=re.M)
+    return re.sub(r"\d+(\.\d+)?(e-?\d+)?", "N", err)
+
+
+@pytest.mark.parametrize("mode", ["text", "raw"])
+def test_verbose_sync_stderr_matches_focr_tpu(pages, mono_font_path, capsys, mode):
+    """--verbose-sync: per-page fenced dispatch; stdout and, numbers masked,
+    stderr equal focr_tpu's, with the measured label on every group line."""
+    base = ["-f", mono_font_path, "-t", "13", "-a", ALPHA, "--verbose-sync"]
+    argv = ["-i", *pages, *base] if mode == "text" else ["-i", pages[1], *base, "--raw"]
+    rc_j, out_j, err_j = _run(jax_main, argv, capsys)
+    rc_t, out_t, err_t = _run(torch_main, [*argv, "--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0 and out_t == out_j and out_t
+    assert _masked(err_t) == _masked(err_j)
+    groups = [ln for ln in err_t.splitlines() if " group " in ln and ln.startswith("[")]
+    assert groups and all("measured wall time, split evenly" in ln for ln in groups)
+    assert "estimated" not in err_t
+
+
+def test_verbose_without_sync_prints_the_estimate(pages, mono_font_path, capsys):
+    argv = ["-i", *pages, "-f", mono_font_path, "-t", "13", "-a", ALPHA, "-v"]
+    _, out_j, err_j = _run(jax_main, argv, capsys)
+    _, out_t, err_t = _run(torch_main, [*argv, "--device", "cpu"], capsys)
+    assert out_t == out_j and _masked(err_t) == _masked(err_j)
+    assert "estimated: page span attributed evenly" in err_t and "measured" not in err_t
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--device-kernel", "pallas"], ["--device-kernel", "xla", "--wire", "delta"],
+     ["--wire", "pos"], ["--mesh", "off"], ["--device-kernel", "auto", "--wire", "pos", "--mesh",
+                                            "auto"]],
+    ids=["pallas", "xla-delta", "pos", "mesh-off", "all"],
+)
+def test_compatibility_flags_change_nothing(pages, mono_font_path, capsys, extra):
+    argv = ["-i", *pages, "-f", mono_font_path, "-t", "13", "-a", ALPHA, "--device", "cpu"]
+    _, want, _ = _run(torch_main, argv, capsys)
+    rc, out, err = _run(torch_main, [*argv, *extra], capsys)
+    assert rc == 0 and out == want and err == ""
+    rc_j, out_j, _ = _run(jax_main, [*argv[:-2], *extra], capsys)
+    assert rc_j == 0 and out_j == want
+
+
+def test_profile_writes_a_trace_with_the_stage_spans(pages, mono_font_path, capsys, tmp_path):
+    import json
+
+    from focr_tpu_torch.utils.metrics import TRACE_NAME
+
+    argv = ["-i", *pages, "-f", mono_font_path, "-t", "13", "-a", ALPHA, "--device", "cpu"]
+    _, want, _ = _run(torch_main, argv, capsys)
+    rc, out, _ = _run(torch_main, [*argv, "--profile", str(tmp_path / "tr")], capsys)
+    assert rc == 0 and out == want
+    events = json.loads((tmp_path / "tr" / TRACE_NAME).read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"focr_ncc_dispatch_wave", "focr_ncc_collect_wave"} <= names
+
+
+def test_verbose_with_a_needle_bank_and_no_freetype(pages, mono_font_path, tmp_path, capsys,
+                                                   monkeypatch):
+    """A saved bank holds no font metrics: -v then says that it leaves the
+    dump out, and prints the rest; --raw still needs the font."""
+    from focr_tpu_torch.fonts import ft
+
+    ropts = TRenderOptions(size=13.0)
+    needles = build_needles(TFace(mono_font_path), ALPHA, ropts, BoxSize.ALPHABET, 0, 0)
+    bank = str(tmp_path / "bank.npz")
+    save_needle_bank(
+        bank, needles, bank_settings(mono_font_path, ALPHA, ropts, BoxSize.ALPHABET, 0, 0, (0, 0)))
+    argv = ["-i", *pages, "-f", mono_font_path, "-t", "13", "-a", ALPHA, "--device", "cpu",
+            "--needle-bank", bank]
+    _, want, _ = _run(torch_main, argv, capsys)
+    _, _, err_ft = _run(torch_main, [*argv, "--verbose-sync"], capsys)
+    assert "units_per_em" in err_ft
+
+    def no_library():
+        raise OSError("libfreetype not found")
+
+    monkeypatch.setattr(ft, "_ft", None)
+    monkeypatch.setattr(ft, "_load_library", no_library)
+    rc, out, err = _run(torch_main, [*argv, "--verbose-sync"], capsys)
+    assert rc == 0 and out == want
+    assert "ncc: font metrics not shown: libfreetype not found" in err
+    assert "units_per_em" not in err and "measured wall time, split evenly" in err
+    with pytest.raises(OSError, match="libfreetype not found"):
+        torch_main(["-i", pages[0], *argv[3:], "--raw"])

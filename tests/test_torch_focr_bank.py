@@ -212,3 +212,105 @@ def test_focr_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# --- the lazy bank set (load_grid_bank) --------------------------------------
+
+PROP_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_prop_golden.npz")
+CANONICAL = dict(x_start=45, y_start=39, line_height=12, line_advance=15, width=608)
+
+
+@pytest.mark.parametrize("fixture,kind", [(FIXTURE, "grid"), (PROP_FIXTURE, "prop")])
+def test_bank_set_names_its_heights_without_decompressing(fixture, kind):
+    banks, settings = tbank.load_grid_bank(fixture)
+    assert set(banks) == set(range(1, 13)) and len(banks) == 12 and sorted(banks)[-1] == 12
+    assert 12 in banks and 13 not in banks and banks.get(13) is None
+    assert banks.kind == kind == settings["kind"] and banks.settings is settings
+    assert not (set(range(1, 13)) - set(banks))  # the CLI's missing-height check
+    assert banks.loads == []
+    with pytest.raises(KeyError):
+        banks[13]
+    b = banks[3]
+    assert banks.loads == [3] and banks[3] is b and banks.get(3) is b and banks.loads == [3]
+    assert b.crop_h == 3 and isinstance(b, tbank.GridBank if kind == "grid" else tbank.PropBank)
+
+
+@pytest.mark.parametrize("fixture", [FIXTURE, PROP_FIXTURE], ids=["focr", "prop"])
+def test_canonical_decode_loads_heights_12_and_3_only(fixture):
+    """A decoder for the canonical grid on a 792x662 page asks for crop
+    heights 12 and 3 and nothing else, and decodes what a decoder over the
+    eagerly loaded set decodes."""
+    from focr_tpu_torch.models.focr import GridDecoder
+
+    with np.load(fixture, allow_pickle=False) as z:
+        pages, lines = z["pages"][:2], json.loads(str(z["lines"]))[:2]
+    lazy, settings = tbank.load_grid_bank(fixture)
+    dopts, tr = TDecodeOptions(**CANONICAL), TRenderOptions(size=13.0)
+    dec = GridDecoder(None, settings["alphabet"], dopts, tr, pages.shape[1:], "cpu", banks=lazy)
+    assert sorted(lazy.loads) == [3, 12] and len(lazy.loads) == 2
+    got = [[[ln.text, ln.y] for ln in p] for p in dec.decode_batch(pages)]
+    assert sorted(lazy.loads) == [3, 12]
+    every, _ = tbank.load_grid_bank(fixture)
+    eager = {h: every[h] for h in every}  # what the eager load held: every height
+    assert every.loads == list(range(1, 13))
+    dec2 = GridDecoder(None, settings["alphabet"], dopts, tr, pages.shape[1:], "cpu", banks=eager)
+    assert dec2.monospace == dec.monospace == (settings["kind"] == "grid")
+    assert [[[ln.text, ln.y] for ln in p] for p in dec2.decode_batch(pages)] == got == lines
+
+
+def test_bank_set_first_load_is_guarded_and_close_keeps_loaded_heights():
+    import threading
+
+    banks, _ = tbank.load_grid_bank(FIXTURE)
+    got, barrier = [], threading.Barrier(8)
+
+    def ask():
+        barrier.wait(timeout=30)
+        got.append(banks[12])
+
+    threads = [threading.Thread(target=ask) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert banks.loads == [12] and len(got) == 8 and all(b is got[0] for b in got)
+    banks.close()
+    banks.close()
+    assert banks[12] is got[0] and set(banks) == set(range(1, 13))
+    with pytest.raises(ValueError, match="closed"):
+        banks[3]
+
+
+def test_cached_decoder_keys_on_the_bank_set():
+    from focr_tpu_torch.models.focr import _cached_decoder
+
+    banks, settings = tbank.load_grid_bank(FIXTURE)
+    other, _ = tbank.load_grid_bank(FIXTURE)
+    dopts, tr = TDecodeOptions(**CANONICAL), TRenderOptions(size=13.0)
+    args = (None, settings["alphabet"], dopts, tr, (100, 662), "cpu")
+    a = _cached_decoder(*args, banks)
+    assert _cached_decoder(*args, banks) is a and a.bank_set is banks
+    assert _cached_decoder(*args, other) is not a
+    assert sorted(banks.loads) == [1, 12]  # 100 rows: 4 full rows and a 1-pixel one
+
+
+def test_cli_reports_a_missing_height_without_decompressing(faces, tmp_path, capsys, mono_font_path,
+                                                           monkeypatch):
+    from focr_tpu_torch.cli.focr import main as torch_main
+
+    _, tr = _ropts()
+    path = str(tmp_path / "short.npz")
+    tbank.save_grid_bank(path, [tbank.build_grid_bank(faces[1], "AB01", tr, 40, h) for h in (12, 2)],
+                         tbank.grid_bank_settings(mono_font_path, "AB01", tr, 40))
+    page = str(tmp_path / "p.pgm")
+    timages.save_gray(page, np.full((30, 60), 255, np.uint8))
+    made = []
+    real = tbank.load_grid_bank
+    monkeypatch.setattr(tbank, "load_grid_bank", lambda p: made.append(real(p)) or made[-1])
+    rc = torch_main(["-i", page, "-f", mono_font_path, "-t", "13", "-a", "AB01", "-w", "40",
+                     "--line-height", "12", "--line-advance", "15", "--device", "cpu",
+                     "--grid-bank", path])
+    cap = capsys.readouterr()
+    assert rc == 2 and cap.out == "" and "no bank for crop heights [1, 3, 4" in cap.err
+    assert made[0][0].loads == []

@@ -2,6 +2,8 @@
 PGM pages: stdout byte for byte, the same `ERROR <path>: ...` stderr lines,
 and the port's own flags (--grid-bank, --device)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -162,3 +164,197 @@ def test_cuda_without_a_card_exits_2(setup, capsys):
     paths, flags, _ = setup
     rc, out, err = _run(torch_main, ["-i", paths["a"], *flags], capsys)
     assert rc == 2 and out == "" and "CUDA" in err
+
+
+# --- the flags ported last: --test, --verify, --profile, --metrics-json,
+# --mesh, --glyph-shards --------------------------------------------------
+
+
+def _options(parser):
+    return {s for a in parser._actions for s in a.option_strings}
+
+
+def test_parser_takes_every_flag_of_focr_tpus():
+    from focr_tpu.cli.focr import build_parser as jax_parser
+    from focr_tpu_torch.cli.focr import build_parser as torch_parser
+
+    ours, theirs = _options(torch_parser()), _options(jax_parser())
+    assert theirs <= ours
+    assert ours - theirs == {"--device", "--grid-bank"}
+
+
+def _png(path):
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return im.mode, np.asarray(im).copy()
+
+
+@pytest.mark.parametrize("pages", [["a"], ["a", "b", "noise"]], ids=["single", "several"])
+def test_verify_matches_focr_tpu(setup, capsys, tmp_path, pages):
+    """--verify: the same `path mse` stderr lines, the same overlay pixels in
+    the PNGs, the same stdout (a single image is then not streamed)."""
+    paths, flags, _ = setup
+    jd, td = tmp_path / "j", tmp_path / "t"
+    jd.mkdir(), td.mkdir()
+    argv = ["-i", *(paths[p] for p in pages), *flags]
+    rc_j, want, err_j = _run(jax_main, [*argv, "--verify", str(jd)], capsys)
+    rc_t, got, err_t = _run(torch_main, [*argv, "--verify", str(td), "--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0 and got == want and want
+    assert err_t == err_j and len(err_t.splitlines()) == len(pages)
+    assert all(re.fullmatch(r".+\.pgm \d+\.\d{6}", ln) for ln in err_t.splitlines())
+    names = sorted(p.name for p in jd.iterdir())
+    assert sorted(p.name for p in td.iterdir()) == names == sorted(f"{p}.png" for p in pages)
+    for name in names:
+        (mode_t, px_t), (mode_j, px_j) = _png(td / name), _png(jd / name)
+        assert mode_t == mode_j == "RGB" and np.array_equal(px_t, px_j)
+
+
+def test_verify_skips_an_unreadable_page_like_focr_tpu(setup, capsys, tmp_path):
+    paths, flags, d = setup
+    bad = d / "bad2.png"
+    bad.write_bytes(b"not an image")
+    jd, td = tmp_path / "j", tmp_path / "t"
+    jd.mkdir(), td.mkdir()
+    argv = ["-i", paths["a"], str(bad), paths["c"], *flags]
+    _, want, err_j = _run(jax_main, [*argv, "--verify", str(jd)], capsys)
+    _, got, err_t = _run(torch_main, [*argv, "--verify", str(td), "--device", "cpu"], capsys)
+    assert got == want and err_t == err_j
+    assert sorted(p.name for p in td.iterdir()) == sorted(p.name for p in jd.iterdir()) == [
+        "a.png", "c.png"]
+
+
+def test_verify_needs_a_directory(setup, tmp_path):
+    paths, flags, _ = setup
+    argv = ["-i", paths["a"], *flags, "--verify", str(tmp_path / "missing")]
+    with pytest.raises(AssertionError, match="--verify should be a dir"):
+        jax_main(argv)
+    with pytest.raises(AssertionError, match="--verify should be a dir"):
+        torch_main([*argv, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("page,extra", [("a", []), ("noise", []), ("b", ["-a", "AB"])],
+                         ids=["text", "noise", "short-alphabet"])
+def test_test_mode_matches_focr_tpu(setup, capsys, tmp_path, page, extra):
+    """--test PREFIX: the two RGBA PNGs decode to focr_tpu's pixels; nothing
+    on stdout; no device is needed (no --device cpu here)."""
+    paths, flags, _ = setup
+    argv = ["-i", paths[page], *flags, *extra]
+    rc_j, out_j, _ = _run(jax_main, [*argv, "--test", str(tmp_path / "j")], capsys)
+    rc_t, out_t, _ = _run(torch_main, [*argv, "--test", str(tmp_path / "t")], capsys)
+    assert rc_j == rc_t == 0 and out_t == out_j == ""
+    for kind in ("rect", "text"):
+        (mode_t, px_t), (mode_j, px_j) = (_png(tmp_path / f"t-{kind}.png"),
+                                          _png(tmp_path / f"j-{kind}.png"))
+        assert mode_t == mode_j == "RGBA" and np.array_equal(px_t, px_j)
+
+
+@pytest.mark.parametrize("mode", ["verify", "test"])
+def test_overlays_without_freetype_raise_as_face_does(setup, capsys, tmp_path, monkeypatch,
+                                                      mono_font_path, mode):
+    """With --grid-bank and no FreeType, --verify and --test raise what Face
+    raises: no quiet skip."""
+    from focr_tpu_torch.fonts import ft
+
+    paths, flags, d = setup
+    width = int(flags[flags.index("-w") + 1])
+    tface, tr = TFace(mono_font_path), TRenderOptions(size=13.0)
+    bank = str(d / "grid-verify.npz")
+    save_grid_bank(
+        bank, [build_grid_bank(tface, FOCR_DEFAULT_ALPHABET, tr, width, h) for h in range(1, 13)],
+        grid_bank_settings(mono_font_path, FOCR_DEFAULT_ALPHABET, tr, width),
+    )
+
+    def no_library():
+        raise OSError("libfreetype not found")
+
+    monkeypatch.setattr(ft, "_ft", None)
+    monkeypatch.setattr(ft, "_load_library", no_library)
+    with pytest.raises(OSError, match="libfreetype not found"):
+        ft.Face(mono_font_path)
+    argv = ["-i", paths["a"], paths["c"], *flags, "--device", "cpu", "--grid-bank", bank]
+    rc, out, _ = _run(torch_main, argv, capsys)  # the decode itself needs no FreeType
+    assert rc == 0 and out
+    extra = ["--verify", str(tmp_path)] if mode == "verify" else ["--test", str(tmp_path / "p")]
+    with pytest.raises(OSError, match="libfreetype not found"):
+        torch_main([*argv, *extra])
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("pages", [["a"], ["a", "b", "c"], ["bad", "a"], ["noise", "bad", "b"]],
+                         ids=["single", "several", "bad-first", "bad-middle"])
+def test_metrics_json_matches_focr_tpu(setup, capsys, tmp_path, pages):
+    """--metrics-json: focr_tpu's keys, and its counts for the same argv."""
+    import json
+
+    paths, flags, d = setup
+    bad = d / "bad3.png"
+    bad.write_bytes(b"not an image")
+    argv = ["-i", *(str(bad) if p == "bad" else paths[p] for p in pages), *flags]
+    _, want_out, _ = _run(jax_main, [*argv, "--metrics-json", str(tmp_path / "j.json")], capsys)
+    _, got_out, _ = _run(torch_main, [*argv, "--device", "cpu", "--metrics-json",
+                                      str(tmp_path / "t.json")], capsys)
+    assert got_out == want_out
+    want = json.loads((tmp_path / "j.json").read_text())
+    got = json.loads((tmp_path / "t.json").read_text())
+    assert set(got) == set(want) == {"tool", "pages", "decoded_pages", "lines", "errors",
+                                     "decode_seconds", "pages_per_sec"}
+    for k in ("tool", "pages", "decoded_pages", "lines", "errors"):
+        assert got[k] == want[k], k
+    assert got["decode_seconds"] > 0 and got["pages_per_sec"] == pytest.approx(
+        got["decoded_pages"] / got["decode_seconds"])
+    # one line, keys sorted, as focr_tpu writes it
+    text = (tmp_path / "t.json").read_text()
+    assert text.endswith("\n") and text.count("\n") == 1 and list(got) == sorted(got)
+
+
+def test_metrics_json_dash_goes_to_stderr(setup, capsys):
+    import json
+
+    paths, flags, _ = setup
+    argv = ["-i", paths["a"], paths["b"], *flags, "--device", "cpu"]
+    _, want, _ = _run(torch_main, argv, capsys)
+    rc, out, err = _run(torch_main, [*argv, "--metrics-json", "-"], capsys)
+    assert rc == 0 and out == want
+    assert json.loads(err.splitlines()[-1])["decoded_pages"] == 2
+
+
+@pytest.mark.parametrize("pages", [["a"], ["a", "b"]], ids=["streamed", "batched"])
+def test_profile_writes_a_trace_and_keeps_stdout(setup, capsys, tmp_path, pages):
+    import json
+
+    from focr_tpu_torch.utils.metrics import TRACE_NAME
+
+    paths, flags, _ = setup
+    argv = ["-i", *(paths[p] for p in pages), *flags, "--device", "cpu"]
+    _, want, _ = _run(torch_main, argv, capsys)
+    rc, out, _ = _run(torch_main, [*argv, "--profile", str(tmp_path / "trace")], capsys)
+    assert rc == 0 and out == want
+    events = json.loads((tmp_path / "trace" / TRACE_NAME).read_text())["traceEvents"]
+    assert len(events) > 10
+
+
+@pytest.mark.parametrize("extra", [["--mesh", "auto"], ["--mesh", "off"], ["--glyph-shards", "1"],
+                                   ["--mesh", "auto", "--glyph-shards", "2"]],
+                         ids=["mesh-auto", "mesh-off", "glyph-shards", "both"])
+def test_mesh_flags_are_accepted_and_do_nothing_on_one_device(setup, capsys, extra):
+    paths, flags, _ = setup
+    argv = ["-i", paths["a"], paths["b"], *flags, "--device", "cpu"]
+    _, want, _ = _run(torch_main, argv, capsys)
+    rc, out, err = _run(torch_main, [*argv, *extra], capsys)
+    assert rc == 0 and out == want and err == ""
+
+
+@pytest.mark.parametrize("cards,mesh,said", [(1, "auto", False), (4, "auto", True),
+                                             (4, "off", False)])
+def test_more_cards_than_one_is_said_once(capsys, monkeypatch, cards, mesh, said):
+    """With several cards visible the run takes one and says so in one
+    stderr line (--mesh auto on a card); on the CPU it never speaks."""
+    from focr_tpu_torch.utils.device import note_single_card
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    note_single_card("focr", mesh, torch.device("cuda"))
+    err = capsys.readouterr().err
+    assert (err.count("\n") == 1 and f"{cards} CUDA cards" in err) if said else err == ""
+    note_single_card("focr", mesh, torch.device("cpu"))
+    assert capsys.readouterr().err == ""

@@ -5,25 +5,32 @@ the repo, in turns.
     python tools/torch_cli_profile.py profile [--runs N]            # stage tables
     python tools/torch_cli_profile.py compare OTHER_ROOT [--runs N] # pages/s in turns
     python tools/torch_cli_profile.py kernels OTHER_ROOT            # K1, K2, K4 in turns
+    python tools/torch_cli_profile.py pool [depth] [--runs N]       # ncc pool and depth settings
     python tools/torch_cli_profile.py summary OUTPUT_FILE           # medians of a run's lines
+    python tools/torch_cli_profile.py pool-summary OUTPUT_FILE      # a pool run by setting
 
 All run the CLIs in-process (``main()``) on the 16 pages of the golden
 fixtures (tests/fixtures/torch_{ncc,focr,prop}_golden.npz, written as PGMs),
 with the saved banks (``--needle-bank``, ``--grid-bank``), after one warm-up
 run.
 
-profile — for each CLI: the wall of N warm runs (default 6); one run under cProfile with
-    the ncc collect pool set to 1 thread (cProfile follows every thread, so a
-    4-thread pool would interleave the stacks), reduced to the cumulative
-    seconds of the stages named in STAGES; one run under torch.profiler,
-    reduced to the device time by kernel and in all (device busy = device
-    time / wall).
+profile — for each CLI: the wall of N warm runs (default 6), with the ncc
+    stages' seconds in each run (dispatch, fetch and collect, each summed
+    over the threads that run it: they overlap, so they need not add up to
+    the wall); one run under cProfile with the ncc stages in series (pipeline
+    depth 0, one collect thread: cProfile follows every thread, so
+    overlapping stages would interleave the stacks), reduced to the
+    cumulative seconds of the stages named in STAGES; one run under
+    torch.profiler, reduced to the device time by kernel and in all (device
+    busy = device time / wall); for focr and prop the bank load by crop
+    height (opening the set, then each height's decompression).
 compare — runs ``time`` in a fresh process for OTHER_ROOT, this root, this
     root and OTHER_ROOT (in that order), each timing N warm runs of each CLI
-    (with the ncc device stage ``_sweep_wave``'s ms a run), and prints each
-    process's pages/s. OTHER_ROOT is a checkout of the package (``git
-    archive`` of a commit, or a variant's copy under ``_checkout/``),
-    imported in place of this one.
+    (with the ncc device stage's ms a run: ``_dispatch_wave`` and
+    ``_fetch_wave``, or ``_sweep_wave`` in a checkout from before the
+    pipeline), and prints each process's pages/s. OTHER_ROOT is a checkout
+    of the package (``git archive`` of a commit, or a variant's copy under
+    ``_checkout/``), imported in place of this one.
 kernels — the same turns, each process timing K1 and K2 (``compact_hits``:
     everything the main path runs between K1 and the positions) at the ncc
     main path's shapes — the first wave of the ncc fixture, inverted and
@@ -32,9 +39,15 @@ kernels — the same turns, each process timing K1 and K2 (``compact_hits``:
     bit for bit against its plain version first; the best of 5 means of 20
     calls, CUDA events). Each process builds its kernels with the register
     report (stderr).
+pool — the ncc CLI's pages/s at 16 and at 64 pages (the fixture's pages four
+    times: eight waves) under each of POOL_SETTINGS (collect threads, the
+    OpenMP team of a replay call, the pipeline's depth), in four turns whose
+    order rotates and alternates (``pool depth``: only the depths, at the
+    first setting's pool and team, in eight turns); ``pool-summary`` reduces
+    a saved run to one line a setting.
 summary — reads the JSON lines that ``compare`` or ``kernels`` printed (saved
     to a file) and prints, for each process in order, the median and
-    quartiles of every list (pages/s, ``_sweep_wave`` ms) and every number.
+    quartiles of every list (pages/s, the stages' ms) and every number.
 
 Every output line is JSON; each names the card (`nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`).
@@ -61,7 +74,8 @@ GRID = ["-x", "45", "-y", "39", "-w", "608", "--line-height", "12", "--line-adva
 RUNS = int(sys.argv[sys.argv.index("--runs") + 1]) if "--runs" in sys.argv else 6
 # the stages each stage table reports (cumulative seconds of these functions)
 STAGES = {
-    "ncc": ("load_needle_bank", "load_gray", "_sweep_wave", "_collect_page", "_replay_group",
+    "ncc": ("load_needle_bank", "load_gray", "group_from_numpy", "get_hits_many",
+            "_dispatch_wave", "_fetch_wave", "_collect_page", "_replay_group",
             "process_hits_text"),
     "focr": ("load_grid_bank", "load_gray_many_isolated", "decode_pages", "_dispatch",
              "ssd_argmin", "_finish"),
@@ -129,41 +143,88 @@ def _card() -> str:
     return card_label()
 
 
+# the ncc device and collect stages, by the method that runs each; a checkout
+# from before the pipeline has only _sweep_wave (dispatch and fetch in one)
+NCC_STAGES = ("_dispatch_wave", "_fetch_wave", "_collect_page")
+
+
+@contextlib.contextmanager
+def _ncc_stage_timers():
+    """Wall seconds spent inside each ncc stage method, summed over the
+    threads that run it: yields {stage: [seconds of each run]}; the caller
+    appends a 0.0 to every list before each run."""
+    import threading
+
+    from focr_tpu_torch.models import ncc as ncc_model
+
+    cls = ncc_model.NccMatcher
+    names = [n for n in NCC_STAGES if hasattr(cls, n)]
+    if "_dispatch_wave" not in names:
+        names.insert(0, "_sweep_wave")
+    spent = {n: [] for n in names}
+    lock = threading.Lock()
+    saved = {n: getattr(cls, n) for n in names}
+
+    def timed(name, fn):
+        def wrapper(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                with lock:
+                    spent[name][-1] += time.perf_counter() - t0
+        return wrapper
+
+    for n, fn in saved.items():
+        setattr(cls, n, timed(n, fn))
+    try:
+        yield spent
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
 def time_clis(root: str) -> None:
-    """pages/s of each CLI, with the ncc device stage's seconds per run
-    (``NccMatcher._sweep_wave``, which waits for K1 and K2)."""
+    """pages/s of each CLI, with the ncc stages' ms per run (the device
+    stage waits for K1 and K2)."""
     import torch
 
     import focr_tpu_torch
-    from focr_tpu_torch.models import ncc as ncc_model
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
-    sweep_s = []
-    wave = ncc_model.NccMatcher._sweep_wave
-
-    def timed_wave(self, batch):
-        t0 = time.perf_counter()
-        try:
-            return wave(self, batch)
-        finally:
-            sweep_s[-1] += time.perf_counter() - t0
-
-    ncc_model.NccMatcher._sweep_wave = timed_wave
     for cli in CLIS:
-        with _cli(cli) as (main, argv, n):
-            sweep_s.append(0.0)
+        with _cli(cli) as (main, argv, n), _ncc_stage_timers() as spent:
+            for v in spent.values():
+                v.append(0.0)
             _run(main, argv)
-            sweep_s.clear()
+            for v in spent.values():
+                v.clear()
             walls = []
             for _ in range(RUNS):
-                sweep_s.append(0.0)
+                for v in spent.values():
+                    v.append(0.0)
                 walls.append(_run(main, argv))
         line = {"root": root, "package": os.path.dirname(focr_tpu_torch.__file__), "cli": cli,
                 "pages_per_s": [n / w for w in walls], "card": _card()}
         if cli == "ncc":
-            line["sweep_wave_ms"] = [t * 1e3 for t in sweep_s]
+            for name, v in spent.items():
+                line[f"{name.strip('_')}_ms"] = [t * 1e3 for t in v]
         print(json.dumps(line), flush=True)
+
+
+def _bank_load_by_height(cli: str) -> dict:
+    """ms to open a saved focr bank set and to decompress each crop height."""
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+
+    t0 = time.perf_counter()
+    banks, _ = load_grid_bank(_fixture(cli))
+    out = {"open_ms": (time.perf_counter() - t0) * 1e3, "by_height_ms": {}}
+    for h in sorted(banks):
+        t0 = time.perf_counter()
+        banks[h]
+        out["by_height_ms"][h] = (time.perf_counter() - t0) * 1e3
+    return out
 
 
 def _best_ms(fn, per: int) -> float:
@@ -259,16 +320,21 @@ def profile() -> None:
     for cli in CLIS:
         with _cli(cli) as (main, argv, n):
             _run(main, argv)
-            walls = [_run(main, argv) for _ in range(RUNS)]
-            threads = ncc_model.COLLECT_THREADS
-            ncc_model.COLLECT_THREADS = 1
+            with _ncc_stage_timers() as spent:
+                walls = []
+                for _ in range(RUNS):
+                    for v in spent.values():
+                        v.append(0.0)
+                    walls.append(_run(main, argv))
+            threads, depth = ncc_model.COLLECT_THREADS, ncc_model.PIPELINE_DEPTH
+            ncc_model.COLLECT_THREADS, ncc_model.PIPELINE_DEPTH = 1, 0
             try:
                 prof = cProfile.Profile()
                 prof.enable()
                 wall_cp = _run(main, argv)
                 prof.disable()
             finally:
-                ncc_model.COLLECT_THREADS = threads
+                ncc_model.COLLECT_THREADS, ncc_model.PIPELINE_DEPTH = threads, depth
             stats = pstats.Stats(prof)
             stages = {name: 0.0 for name in STAGES[cli]}
             for (_, _, func), (_, _, _, cum, _) in stats.stats.items():
@@ -285,13 +351,82 @@ def profile() -> None:
                 if t and ev.device_type == torch.autograd.DeviceType.CUDA:
                     dev[ev.key] = dev.get(ev.key, 0.0) + t / 1e3
             busy = sum(dev.values())
-        print(json.dumps({
+        line = {
             "cli": cli, "pages": n, "pages_per_s": [n / w for w in walls],
             "cprofile_wall_s": wall_cp, "stages_cum_s": stages,
             "torch_profiler_wall_ms": wall_tp * 1e3, "device_ms": busy,
             "device_busy": busy / (wall_tp * 1e3),
             "device_ms_by_kernel": dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8]),
-            "card": _card()}), flush=True)
+            "card": _card()}
+        if cli == "ncc":
+            line["stage_thread_ms"] = {k.strip("_"): [t * 1e3 for t in v]
+                                       for k, v in spent.items()}
+        else:
+            line["bank_load"] = _bank_load_by_height(cli)
+        print(json.dumps(line), flush=True)
+
+
+# (collect threads, OpenMP team of a replay call (0: the runtime's default, every
+# core), pipeline depth) to time against each other in ``pool`` mode
+POOL_SETTINGS = ((4, 2, 2), (1, 0, 2), (8, 1, 2), (4, 0, 2), (2, 4, 2), (4, 2, 0), (1, 0, 0),
+                 (4, 2, 1), (4, 2, 3))
+POOL_TURNS = 4
+
+
+def pool(settings=POOL_SETTINGS, turns: int = POOL_TURNS) -> None:
+    """The ncc CLI's pages/s at 16 and at 64 pages under each of
+    ``settings``, in ``turns`` turns: each turn starts two settings further
+    on, and every other turn runs in reverse, so that no setting keeps one
+    place in the order; RUNS warm runs each (models/ncc.py::COLLECT_THREADS
+    and PIPELINE_DEPTH, native/ncc_cpu.py::REPLAY_TEAM are set for the runs
+    and restored)."""
+    import torch
+
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.native import ncc_cpu
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    saved = (ncc_model.COLLECT_THREADS, ncc_cpu.REPLAY_TEAM, ncc_model.PIPELINE_DEPTH)
+    with _cli("ncc") as (main, argv, n):
+        paths = argv[1 : 1 + n]
+        for reps in (1, 4) * 6:  # warm both sizes: pools, pinned buffers, the host's clocks
+            _run(main, _argv("ncc", paths * reps))
+        try:
+            for turn in range(turns):
+                k = 2 * turn % len(settings)
+                order = (settings[k:] + settings[:k])[:: -1 if turn % 2 else 1]
+                for threads, team, depth in order:
+                    ncc_model.COLLECT_THREADS, ncc_cpu.REPLAY_TEAM = threads, team
+                    ncc_model.PIPELINE_DEPTH = depth
+                    line = {"collect_threads": threads, "replay_team": team, "depth": depth,
+                            "turn": turn, "card": _card()}
+                    for reps in (1, 4):
+                        av = _argv("ncc", paths * reps)
+                        line[f"pages_per_s_{n * reps}"] = [
+                            n * reps / _run(main, av) for _ in range(RUNS)]
+                    print(json.dumps(line), flush=True)
+        finally:
+            ncc_model.COLLECT_THREADS, ncc_cpu.REPLAY_TEAM, ncc_model.PIPELINE_DEPTH = saved
+
+
+def pool_summary(path: str) -> None:
+    """One line a setting from a saved ``pool`` run: each turn's median
+    pages/s at both sizes, and the median over all runs of all turns."""
+    import numpy as np
+
+    by: dict = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("{"):
+                r = json.loads(line)
+                by.setdefault((r["collect_threads"], r["replay_team"], r["depth"]), []).append(r)
+    for (threads, team, depth), rows in by.items():
+        out = {"collect_threads": threads, "replay_team": team, "depth": depth}
+        for key in sorted(k for k in rows[0] if k.startswith("pages_per_s_")):
+            out[key] = {"turn_medians": [float(np.median(r[key])) for r in rows],
+                        "median": float(np.median([v for r in rows for v in r[key]]))}
+        print(json.dumps(out), flush=True)
 
 
 def compare(other: str, mode: str) -> None:
@@ -314,7 +449,8 @@ def summary(path: str) -> None:
             if not line.startswith("{"):
                 continue
             rec = json.loads(line)
-            out = {k: rec[k] for k in ("root", "cli") if k in rec}
+            out = {k: rec[k] for k in ("root", "cli", "collect_threads", "replay_team", "depth",
+                                       "turn") if k in rec}
             for k, v in rec.items():
                 if isinstance(v, list) and v:
                     q1, med, q3 = np.percentile(v, [25, 50, 75])
@@ -333,6 +469,15 @@ def main() -> int:
         (time_clis if mode == "time" else time_kernels)(root)
     elif mode == "summary":
         summary(sys.argv[2])
+    elif mode == "pool-summary":
+        pool_summary(sys.argv[2])
+    elif mode == "pool":
+        sys.path.insert(0, HERE)
+        if "depth" in sys.argv[2:]:  # the depths alone, at the kept pool and team, more turns
+            kept = POOL_SETTINGS[0][:2]
+            pool(tuple(s for s in POOL_SETTINGS if s[:2] == kept), 2 * POOL_TURNS)
+        else:
+            pool()
     elif mode in ("compare", "kernels"):
         compare(os.path.abspath(sys.argv[2]), "time" if mode == "compare" else "kernels-time")
     else:
