@@ -115,6 +115,34 @@ Phases, each of which raises on failure:
                PNGs and the verify line; where it does not: --verify with
                --grid-bank raises Face's error, and the run prints
                {"overlays": "no FreeType on this machine"}
+ 17. mesh-kernels — the glyph axis' two kernels on the focr corpus' bank cut
+               into 2 and into 4 glyph slices (parallel/decode.py::
+               shard_grid_bank: 67 glyphs pad to 68 with a copy of glyph 0):
+               K4p (ssd_argmin_partial) on every slice against its plain
+               version (ids, val and white bit-identical), called with the
+               slice's packed templates as the mesh path calls it, on the
+               corpus wave, on noise and white pages and on the 8-page block
+               a slot of a 2x2 mesh is given (the shape that is timed); K6 (first_min_combine) against
+               its plain version on the gathered partials and on adversarial
+               ties (equal val in every shard, the minimum in the last shard,
+               values past 2^53); the combined ids against unsharded K4's;
+               both timed with CUDA events at the shapes a 2x2 mesh gives
+               them (blocks of 8 pages), with their device time from a
+               torch.profiler trace beside it (the calls are host-bound), and
+               K4p's int64 instance on a 1x34000 window
+ 18. mesh-paths — the three CLIs in-process over four slots,
+               FOCR_TORCH_MESH_DEVICES=cuda:0 four times (each slot its own
+               stream), and over the physical cards as well when more than one
+               is visible (the log says which ran): focr with --glyph-shards
+               1, 2 and 4, prop, and ncc on 64 pages (two waves of 32, eight
+               sub-waves); every run's stdout byte-identical to focr_tpu's,
+               three runs each; the wrappers' launch counts, reset before a
+               run and read after it, equal the slots' own counts, and every
+               slot launched; then pages/s in turns against --mesh off (off,
+               mesh, mesh, off; three runs a turn)
+ 19. multiproc — tools/torch_multiproc_smoke.py: two processes over gloo,
+               four slots each on the card, the canonical corpora; both must
+               print OK
 
 Then a JSON line with the conv2d yardstick, one JSON line of the kernels
 (with the host tier's numbers under "host_native" and phases 13-14's under
@@ -130,6 +158,11 @@ functions). K1's entry carries its wide instance's numbers as wide_*; K2's
 (whose bytes are the mask rows that hold candidates, the row counts and its
 outputs) its count kernel's launches, each of its two kernels' ms alone, and
 the device stage's host waits a wave; K4's the instance the main path takes.
+K4p's and K6's launches are those of phase 18's focr run at 2 glyph shards on
+four slots; their ms are per page of a slot's block, with the numbers at 4
+glyph shards under "by_glyph_shards". The line also carries phase 18's
+pages/s under "mesh" (every entry names its slots and the number of physical
+cards under them).
 """
 
 from __future__ import annotations
@@ -173,6 +206,27 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean ms of device time per call of the kernels whose name holds
+    ``kernel``, from a torch.profiler trace of ``reps`` calls: what a call
+    costs the card, where cuda_ms times a call that the host bounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # the attribute's name differs between torch versions
+    durs = [getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            for e in prof.key_averages() if kernel in e.key]
+    if not durs or sum(durs) <= 0:
+        raise AssertionError(f"the trace holds no device time of a kernel named {kernel}")
+    return sum(durs) / 1e3 / reps
 
 
 # the H100 SXM's published dense int8 tensor-core rate and memory rate (NVIDIA's
@@ -1065,6 +1119,278 @@ def overlays_phase(cases: dict) -> str | None:
     return None
 
 
+def mesh_kernels_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 17: K4p and K6 against their plain versions. Returns their
+    kernels entries (launches filled in by phase 18)."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+    from focr_tpu_torch.models import focr as focr_model
+    from focr_tpu_torch.models.types import DecodeOptions, RenderOptions
+    from focr_tpu_torch.ops import ssd_kernels as S
+    from focr_tpu_torch.parallel.decode import shard_grid_bank
+
+    banks, settings = load_grid_bank(FOCR_FIXTURE)
+    with np.load(FOCR_FIXTURE, allow_pickle=False) as z:
+        pages = z["pages"]
+    dopts = DecodeOptions(x_start=45, y_start=39, line_height=12, line_advance=15, width=608)
+    dec = focr_model.GridDecoder(None, settings["alphabet"], dopts, RenderOptions(size=13.0),
+                                 pages.shape[1:], dev, banks=banks)
+    rng = np.random.default_rng(23)
+    noise = rng.integers(0, 256, (4, *pages.shape[1:]), dtype=np.uint8)
+    noise[2:] = 255  # white pages: every glyph's metric is its tsq, the emptiest glyph wins
+    up = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    def partials(strips_d, wx0_d, slices):
+        """K4p on every slice, called as the mesh path calls it (the slice's
+        bfrag packed beforehand, as StripForward holds it), against its plain
+        version. Returns the error, the stacked (val, slice-local id) and the
+        last slice's arguments and bfrag."""
+        _, _, h, crop_w = strips_d.shape
+        mma = S.ssd_plan(h, crop_w, slices[0][0].shape[3])[0] == "mma"
+        e, vals, lids = 0, [], []
+        for tmpl, tsq in slices:
+            args = (strips_d, up(tmpl), up(tsq.astype(np.int64)), wx0_d)
+            bfrag = S.pack_template_fragments(args[1]) if mma else None
+            ids, val, white = S.ssd_argmin_partial(*args, bfrag=bfrag)
+            ids_r, val_r, white_r = S.ssd_argmin_partial_reference(*args)
+            torch.cuda.synchronize()
+            e = max(e, max_abs_err(ids, ids_r), max_abs_err(val, val_r),
+                    max_abs_err(white.to(torch.int32), white_r.to(torch.int32)))
+            vals.append(val), lids.append(ids)
+        return e, torch.stack(vals), torch.stack(lids), args, bfrag
+
+    def checked(strips_d, wx0_d, slices, full_args, n_glyphs, what):
+        """K4p and K6 against their plain versions and the combined ids
+        against unsharded K4's, folded into ``err``; raises on a difference.
+        Returns partials' tensors for the timing."""
+        Gl = slices[0][0].shape[1]
+        e4, vals, lids, args, bfrag = partials(strips_d, wx0_d, slices)
+        out = S.first_min_combine(vals, lids, Gl)
+        out_r = S.first_min_combine_reference(vals, lids, Gl)
+        full, _ = S.ssd_argmin(strips_d, *full_args)
+        torch.cuda.synchronize()
+        e6, e_full = max_abs_err(out, out_r), max_abs_err(out, full)
+        ties = int((vals == vals.min(dim=0).values).sum(dim=0).gt(1).sum())
+        log(f"[mesh-kernels] {len(slices)} glyph shards of {Gl}, {what}: K4p vs plain max|err| "
+            f"{e4}, K6 vs plain {e6}, combined vs unsharded K4 {e_full}; {ties} cells tie "
+            "across shards")
+        err["ssd_argmin_partial"] = max(err["ssd_argmin_partial"], e4)
+        err["ssd_combine"] = max(err["ssd_combine"], e6, e_full)
+        if e4 or e6 or e_full or int(out.max()) >= n_glyphs:
+            raise AssertionError(f"mesh kernels mismatch, {what}: K4p {e4}, K6 {e6}, combined "
+                                 f"{e_full}, largest id {int(out.max())} of {n_glyphs} glyphs")
+        return vals, lids, args, bfrag
+
+    err = {"ssd_argmin_partial": 0, "ssd_combine": 0}
+    by_shards: dict[int, dict] = {}
+    block = 8  # pages of a slot's block on a 2x2 mesh of the 16-page batch
+    for n_g in (2, 4):
+        t = {"k4p_ms": 0.0, "k4p_plain_ms": 0.0, "k6_ms": 0.0, "k6_plain_ms": 0.0,
+             "k4p_device_ms": 0.0, "k6_device_ms": 0.0,
+             "k4p_ops": 0, "k4p_bytes": 0, "k6_bytes": 0}
+        for (grp, _), bank in zip(dec.groups, dec.banks):
+            slices = shard_grid_bank(bank.templates, bank.tsq, n_g)
+            wx0_d = up(bank.wx0)
+            full_args = (up(bank.templates), up(bank.tsq.astype(np.int64)), wx0_d)
+            # the 16-page wave, noise and white pages, and the block of 8 pages
+            # that a slot of a 2 x n_g mesh is given: checked, then timed
+            for label, src in (("corpus wave", pages), ("noise and white pages", noise),
+                               (f"a slot's block of {block} pages", pages[:block])):
+                strips_d = up(focr_model.crop_strips(src, grp.ys, grp.crop_h, dec.x0, dec.crop_w))
+                vals, lids, args, bfrag = checked(
+                    strips_d, wx0_d, slices, full_args, bank.n_glyphs,
+                    f"row group h={grp.crop_h}, {label}")
+            Bs, R, h, _ = args[0].shape
+            C, Gl, _, win_w = args[1].shape
+            t["k4p_ms"] += cuda_ms(lambda: S.ssd_argmin_partial(*args, bfrag=bfrag), 20) / block
+            t["k4p_plain_ms"] += cuda_ms(lambda: S.ssd_argmin_partial_reference(*args), 5) / block
+            t["k6_ms"] += cuda_ms(lambda: S.first_min_combine(vals, lids, Gl), 50) / block
+            t["k4p_device_ms"] += device_ms(lambda: S.ssd_argmin_partial(*args, bfrag=bfrag), 20,
+                                            "focr_ssd_argmin") / block
+            t["k6_device_ms"] += device_ms(lambda: S.first_min_combine(vals, lids, Gl), 20,
+                                           "focr_ssd_combine") / block
+            t["k6_plain_ms"] += cuda_ms(
+                lambda: S.first_min_combine_reference(vals, lids, Gl), 10) / block
+            t["k4p_ops"] += 2 * Bs * R * C * Gl * h * win_w
+            t["k4p_bytes"] += nbytes(*args, *S.ssd_argmin_partial(*args, bfrag=bfrag))
+            t["k6_bytes"] += nbytes(vals, lids, S.first_min_combine(vals, lids, Gl))
+        k4p_bound = bound(t["k4p_ops"] / block, t["k4p_bytes"] / block)
+        k6_bound = bound(0, t["k6_bytes"] / block)
+        by_shards[n_g] = {
+            "k4p": {"ms": t["k4p_ms"], "device_ms": t["k4p_device_ms"],
+                    "plain_ms": t["k4p_plain_ms"], "bound_ms": k4p_bound[0],
+                    "bound_by": k4p_bound[1]},
+            "k6": {"ms": t["k6_ms"], "device_ms": t["k6_device_ms"],
+                   "plain_ms": t["k6_plain_ms"], "bound_ms": k6_bound[0],
+                   "bound_by": k6_bound[1]}}
+        log(f"[mesh-kernels] {n_g} glyph shards, blocks of {block} pages, ms/page (both row "
+            f"groups): K4p on one slice {t['k4p_ms']:.5f} as its call is timed, "
+            f"{t['k4p_device_ms']:.5f} of device time (plain {t['k4p_plain_ms']:.5f}, bound "
+            f"{k4p_bound[0]:.6f} by {k4p_bound[1]}), K6 {t['k6_ms']:.6f}, {t['k6_device_ms']:.6f} "
+            f"of device time (plain {t['k6_plain_ms']:.5f}, bound {k6_bound[0]:.7f} by "
+            f"{k6_bound[1]}); card {card}")
+    # K6 on adversarial ties
+    n = 3978 * 3 + 1
+    for label, make in (
+        ("equal val in every shard", lambda v: v.fill(7)),
+        ("the minimum in the last shard", lambda v: v[-1].fill(-5)),
+        ("values past 2^53, one apart", lambda v: (v.fill(2**62), v[2].__isub__(1))),
+        ("few distinct values", lambda v: v.__imul__(0).__iadd__(
+            rng.integers(-1, 2, v.shape) * 10**15)),
+    ):
+        for n_g in (2, 4, 8):
+            vals = rng.integers(0, 100, (n_g, n)).astype(np.int64)
+            if n_g > 2 or "2^53" not in label:
+                make(vals)
+            ids = rng.integers(0, 1 << 20, (n_g, n)).astype(np.int32)
+            Gl = 1 << 20  # the ids are local: shard s's count from s * Gl
+            got = S.first_min_combine(up(vals), up(ids), Gl)
+            torch.cuda.synchronize()
+            gids = ids + (np.arange(n_g, dtype=np.int32) * Gl)[:, None]
+            want = np.take_along_axis(gids, np.argmin(vals, axis=0)[None], axis=0)[0]
+            e = max(max_abs_err(got, up(want)),
+                    max_abs_err(got, S.first_min_combine_reference(up(vals), up(ids), Gl)))
+            if e:
+                raise AssertionError(f"K6 mismatch on {label} at {n_g} shards: max|err| {e}")
+            err["ssd_combine"] = max(err["ssd_combine"], e)
+        log(f"[mesh-kernels] K6, {label}, {n} cells, 2, 4 and 8 shards: the lowest shard that "
+            "holds the minimum, max|err| 0 against numpy's first-occurrence argmin and the "
+            "plain version")
+    # K4p's int64 instance (a window whose dot may pass 2^31)
+    wide_t = rng.integers(0, 256, (2, 34, 1, 34000), dtype=np.uint8)
+    wide_t[wide_t < 140] = 0
+    wide_t[:, 20] = wide_t[:, 3]  # a duplicated glyph: a tie across the two shards
+    tsq = (wide_t.astype(np.int64) ** 2).sum(axis=(2, 3))
+    strips_d = up(rng.integers(0, 256, (1, 3, 1, 40000), dtype=np.uint8))
+    wx0_d = up(np.array([0, 5000], np.int32))
+    if S.ssd_plan(1, 40000, 34000)[0] != "int64":
+        raise AssertionError("the 1x34000 window did not take the int64 instance")
+    checked(strips_d, wx0_d, shard_grid_bank(wide_t, tsq, 2), (up(wide_t), up(tsq), wx0_d), 34,
+            "int64 instance, 1x34000 window")
+    entries = []
+    for name, key, line in (("ssd_argmin_partial", "k4p", 71), ("ssd_combine", "k6", 75)):
+        entries.append({"name": name, "route": "cuda",
+                        "source": "focr_tpu_torch/csrc/focr_ssd.cu",
+                        "replaces": f"focr_tpu/parallel/decode.py:{line}", "launches": 0,
+                        "launches_per_page": 0.0, "max_abs_err": err[name],
+                        **by_shards[2][key], "library_ms": None, "glyph_shards": 2,
+                        "block_pages": block,
+                        "by_glyph_shards": {str(n_g): v[key] for n_g, v in by_shards.items()}})
+    return entries[0], entries[1]
+
+
+def mesh_paths_phase(cases: dict, ncc_paths: list[str], want16: str, card: str) -> dict:
+    """Phase 18: the three CLIs over a mesh of slots. ``cases``: the focr and
+    prop argv and stdout; ``ncc_paths``, ``want16``: the ncc corpus' 16 page
+    files and the CLI's stdout on them. Returns the numbers for the JSON line,
+    with K4p's and K6's launches of the counted run."""
+    import torch
+
+    from focr_tpu_torch.cli.focr import main as focr_main
+    from focr_tpu_torch.cli.ncc import main as ncc_main
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.ops import ncc_kernels as K
+    from focr_tpu_torch.ops import prop_kernels as P
+    from focr_tpu_torch.ops import ssd_kernels as S
+    from focr_tpu_torch.parallel import mesh as M
+    from focr_tpu_torch.utils.device import SLOT_LAUNCHES, reset_slot_launches
+
+    reps = 4
+    ncc_argv = ["-i", *(ncc_paths * reps), "-f", FONT, "-t", "13", "--x-bits", "2",
+                "--needle-bank", FIXTURE]
+    n_ncc = reps * len(ncc_paths)
+    # (name, main, argv, stdout, pages, the wrappers whose LAUNCHES the slots' counts must equal)
+    configs = [
+        (f"focr --glyph-shards {g}", focr_main, [*cases["focr"][0], "--glyph-shards", str(g)],
+         cases["focr"][1], 16, S) for g in (1, 2, 4)
+    ] + [("prop", focr_main, cases["prop"][0], cases["prop"][1], 16, P),
+         (f"ncc --pages {n_ncc}", ncc_main, ncc_argv, want16 * reps, n_ncc, K)]
+    slot_lists = [["cuda:0"] * 4]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        slot_lists.append([f"cuda:{i}" for i in range(n_cards)])
+    log(f"[mesh-paths] {n_cards} physical card(s) visible: running on 4 slots of cuda:0"
+        + (f" and on the {n_cards} cards, one slot each" if n_cards > 1 else
+           "; the run over several physical cards does NOT run here (peer copies and the "
+           "current-device switch at each launch stay untested)"))
+    result: dict = {"runs": []}
+    saved = os.environ.get(M.MESH_DEVICES_ENV)
+    try:
+        for slots in slot_lists:
+            os.environ[M.MESH_DEVICES_ENV] = ",".join(slots)
+            where = f"{len(slots)} slots on {len(set(slots))} card(s)"
+            for name, main, argv, want, n_pages, wrappers in configs:
+                if "--glyph-shards" in argv and len(slots) % int(argv[-1]):
+                    log(f"[mesh-paths] {name}: {argv[-1]} glyph shards do not divide {where}: "
+                        "not run")
+                    continue
+                # the counted run, then two more: every stdout is focr_tpu's
+                for k in range(3):
+                    wrappers.reset_launches()
+                    reset_slot_launches()
+                    out, _ = _run_cli(main, argv)
+                    launches, by_slot = dict(wrappers.LAUNCHES), dict(SLOT_LAUNCHES)
+                    if out != want:
+                        raise AssertionError(f"mesh {name} on {where}, run {k}: stdout differs")
+                    for kernel in launches:  # every launch was made for a slot
+                        if launches[kernel] != sum(v for (_, kn), v in by_slot.items()
+                                                   if kn == kernel):
+                            raise AssertionError(f"mesh {name}: {kernel} launched "
+                                                 f"{launches[kernel]} times, the slots count "
+                                                 f"{by_slot}")
+                    busy = {i for i, _ in by_slot}
+                    if busy != set(range(len(slots))) or not any(launches.values()):
+                        raise AssertionError(f"mesh {name} on {where}: slots {sorted(busy)} "
+                                             f"launched, of {len(slots)}; launches {launches}")
+                if slots is slot_lists[0] and name == "focr --glyph-shards 2":
+                    result["counted"] = launches
+                # pages/s in turns against --mesh off
+                rates = {"off": [], "mesh": []}
+                for side in ("off", "mesh", "mesh", "off"):
+                    side_argv = [*argv, "--mesh", "off"] if side == "off" else argv
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        out, _ = _run_cli(main, side_argv)
+                        torch.cuda.synchronize()
+                        rates[side].append(n_pages / (time.perf_counter() - t0))
+                        if out != want:
+                            raise AssertionError(f"mesh {name} on {where}, --mesh {side}: stdout "
+                                                 "differs")
+                med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+                log(f"[mesh-paths] {name} on {where}: stdout identical to focr_tpu's on 3 + 12 "
+                    f"runs; launches {launches}, every slot launched; pages/s, median of 6 "
+                    f"(min-max), in turns: mesh {med['mesh']:.1f} ({min(rates['mesh']):.1f}-"
+                    f"{max(rates['mesh']):.1f}) against --mesh off {med['off']:.1f} "
+                    f"({min(rates['off']):.1f}-{max(rates['off']):.1f}); card {card}")
+                result["runs"].append({
+                    "path": name, "slots": slots, "physical_cards": len(set(slots)),
+                    "pages": n_pages, "launches": launches, "pages_per_s_mesh": rates["mesh"],
+                    "pages_per_s_mesh_off": rates["off"]})
+    finally:
+        if saved is None:
+            os.environ.pop(M.MESH_DEVICES_ENV, None)
+        else:
+            os.environ[M.MESH_DEVICES_ENV] = saved
+    # ncc on a mesh waits as the single-card path does, for each sub-wave
+    ncc_model.reset_host_waits()
+    return result
+
+
+def multiproc_phase() -> None:
+    """Phase 19: two processes over gloo on the card."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "torch_multiproc_smoke.py"), "--device",
+         "cuda:0", "--corpus", "canonical"],
+        cwd=REPO, capture_output=True, text=True, timeout=700)
+    oks = [ln for ln in res.stdout.splitlines() if "multiproc smoke OK" in ln]
+    if res.returncode != 0 or len(oks) != 2:
+        raise AssertionError(f"multiproc smoke exited {res.returncode}: {res.stdout[-2000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    log(f"[multiproc] two processes over gloo, {time.perf_counter() - t0:.1f} s: {oks}")
+
 
 def main() -> int:
     import numpy as np
@@ -1341,6 +1667,18 @@ def main() -> int:
         metrics_phase(cases, pages, golden, buf.getvalue())
         # 16. the overlays
         no_overlays = overlays_phase(cases)
+        # 17. the glyph axis' kernels, K4p and K6
+        k4p, k6 = mesh_kernels_phase(dev, card)
+        # 18. the CLIs over a mesh of slots
+        mesh_runs = mesh_paths_phase(cases, _write_pages(tmp, pages), buf.getvalue(), card)
+        for entry in (k4p, k6):
+            entry["launches"] = mesh_runs["counted"][entry["name"]]
+            entry["launches_per_page"] = entry["launches"] / 16
+            if not entry["launches"]:
+                raise AssertionError(f"the mesh path did not launch {entry['name']}")
+        kernels += [k4p, k6]
+    # 19. two processes over gloo
+    multiproc_phase()
     if no_overlays:
         print(json.dumps({"overlays": no_overlays}), flush=True)
     print(json.dumps({"yardstick": "the correlation alone, not a library call of K1: "
@@ -1348,7 +1686,7 @@ def main() -> int:
                       "needle groups (the port never calls it)",
                       "kernel": "ncc_sweep", "conv2d_tf32_ms": conv_ms}), flush=True)
     print(json.dumps({"kernels": kernels, "host_native": host_native, "pipeline": pipeline,
-                      "banks": banks,
+                      "banks": banks, "mesh": mesh_runs["runs"],
                       "cli_pages_per_s": len(pages) / wall,
                       "cli_subprocess_pages_per_s": len(pages) / sub_wall,
                       "focr_cli_pages_per_s": focr_pps,

@@ -36,11 +36,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=16, help="pages per device batch")
     p.add_argument("--mesh", choices=["auto", "off"], default="auto",
                    help="shard page batches over all visible cards (auto: on when >1 "
-                        "card; single-card runs are unaffected). Accepted; this package "
-                        "runs on one card and says so on stderr when it sees more")
+                        "card; single-card runs are unaffected)")
     p.add_argument("--glyph-shards", type=int, default=1,
                    help="tensor-parallel shards of the glyph template bank (must divide "
-                        "the card count); accepted, unused on one card")
+                        "the card count)")
     p.add_argument("--strict", action="store_true",
                    help="fail on the first unreadable page (reference panic semantics); "
                         "default isolates per-page errors to stderr and continues")
@@ -65,7 +64,7 @@ def main(argv: list[str] | None = None) -> int:
         load_gray, load_gray_many, load_gray_many_isolated, save_rgb, save_rgba,
     )
     from focr_tpu_torch.models.focr import _cached_decoder, decode_pages, decode_single_stream
-    from focr_tpu_torch.utils.device import note_single_card, resolve_device
+    from focr_tpu_torch.utils.device import resolve_device
     from focr_tpu_torch.utils.metrics import metrics_run, write_metrics
 
     if args.verify is not None:
@@ -96,7 +95,6 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         print(f"focr: error: {e}", file=sys.stderr)
         return 2
-    note_single_card("focr", args.mesh, device)
 
     banks = None
     if args.grid_bank is not None:
@@ -125,6 +123,12 @@ def main(argv: list[str] | None = None) -> int:
 
     good_idx = [i for i, p in enumerate(pages) if p is not None]
     good_pages = [pages[i] for i in good_idx]
+    mesh = None
+    if args.mesh == "auto":
+        from focr_tpu_torch.parallel.mesh import auto_mesh
+
+        mesh = auto_mesh(device, glyph_shards=args.glyph_shards)
+
     cuda = device.type == "cuda"
     streamed = len(args.img) == 1 and args.verify is None and bool(good_pages)
     results: list[list] = [[] for _ in pages]
@@ -132,7 +136,8 @@ def main(argv: list[str] | None = None) -> int:
         # single-image fast path: print each line as soon as its row chunk
         # is decoded (main.rs:427-440)
         page = good_pages[0]
-        dec = _cached_decoder(face, args.alphabet, dopts, ropts, page.shape, device, banks)
+        dec = _cached_decoder(face, args.alphabet, dopts, ropts, page.shape, device, banks,
+                              mesh)
         with metrics_run(args.profile, cuda) as mrun:
             for line in decode_single_stream(dec, page):
                 print(line.text, flush=True)
@@ -141,7 +146,7 @@ def main(argv: list[str] | None = None) -> int:
         with metrics_run(args.profile, cuda) as mrun:
             good_results = decode_pages(
                 good_pages, face, args.alphabet, dopts, ropts, device,
-                batch_size=args.batch_size, banks=banks,
+                batch_size=args.batch_size, banks=banks, mesh=mesh,
             )
         for i, lines in zip(good_idx, good_results):
             results[i] = lines

@@ -71,8 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--raw", action="store_true")
     p.add_argument("--mesh", choices=["auto", "off"], default="auto",
                    help="shard page batches over all visible cards (auto: on when >1 "
-                        "card; single-card runs are unaffected). Accepted; this package "
-                        "runs on one card and says so on stderr when it sees more")
+                        "card; single-card runs are unaffected)")
     p.add_argument("--strict", action="store_true",
                    help="fail on the first unreadable page (reference panic semantics); "
                         "default isolates per-page errors to stderr and continues")
@@ -111,7 +110,7 @@ def main(argv: list[str] | None = None) -> int:
     from focr_tpu_torch.models.post import (
         process_hits, process_hits_struct, process_hits_text,
     )
-    from focr_tpu_torch.utils.device import note_single_card, resolve_device
+    from focr_tpu_torch.utils.device import resolve_device
     from focr_tpu_torch.utils.metrics import metrics_run, write_metrics
 
     hinting = HintingOptions(full=True, size=args.text_size) if args.hinting else HintingOptions()
@@ -123,8 +122,6 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         print(f"ncc: error: {e}", file=sys.stderr)
         return 2
-    if engine == "device":
-        note_single_card("ncc", args.mesh, device)
 
     needles = None
     if args.needle_bank is not None:
@@ -201,20 +198,39 @@ def main(argv: list[str] | None = None) -> int:
     # post-processing into the pipeline's collect tasks (the reference's rayon
     # (get_hits, process_hits) task shape, ncc.rs:842-845); --csv needs full
     # per-hit fields, so it post-processes to objects.
+    mesh = None
+    if args.mesh == "auto" and engine == "device":
+        from focr_tpu_torch.parallel.mesh import auto_mesh
+
+        mesh = auto_mesh(device)
+
     struct = engine == "device" and not args.verbose
+    text_post = None
+    if struct and not args.csv:
+        text_post = lambda hs: process_hits_text(  # noqa: E731
+            hs, args.anchor_threshold, args.overlap)
     pages = [p for _, p in loaded]
     with metrics_run(args.profile, device.type == "cuda") as mrun:
         if engine == "device" and args.verbose_sync:
-            # measurement mode: per-page fenced dispatch, no pipeline, so the
-            # stderr timing lines are wall-clock truth
+            # measurement mode: per-page fenced dispatch, no pipeline and no
+            # sharding, so the stderr timing lines are wall-clock truth
             hit_lists = [matcher.get_hits(p, verbose=True, sync=True) for p in pages]
-        elif engine == "device" and struct and not args.csv:
-            hit_lists = matcher.get_hits_many(
-                pages, struct=True,
-                post=lambda hs: process_hits_text(hs, args.anchor_threshold, args.overlap),
-            )
+        elif engine == "device" and mesh is not None and len(pages) > 1:
+            # several slots: same-shape page buckets dealt over the mesh
+            hit_lists = [None] * len(pages)
+            buckets: dict[tuple[int, int], list[int]] = {}
+            for j, p in enumerate(pages):
+                buckets.setdefault(p.shape, []).append(j)
+            for idxs in buckets.values():
+                outs = matcher.get_hits_many_sharded(
+                    [pages[j] for j in idxs], mesh, verbose=args.verbose, struct=struct,
+                    post=text_post,
+                )
+                for j, h in zip(idxs, outs):
+                    hit_lists[j] = h
         elif engine == "device":
-            hit_lists = matcher.get_hits_many(pages, verbose=args.verbose, struct=struct)
+            hit_lists = matcher.get_hits_many(
+                pages, verbose=args.verbose, struct=struct, post=text_post)
         else:
             hit_lists = [get(p, verbose=args.verbose) for p in pages]
         if struct and not args.csv:

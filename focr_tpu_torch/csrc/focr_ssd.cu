@@ -58,6 +58,23 @@
 // the kernel is bound by latency (staging a block's strips, the template
 // fragments' loads from L2 for each n-tile), not by either roofline term.
 //
+// K4p, the partial first-minimum of a glyph shard (focr_tpu/parallel/
+// decode.py:71-73, the argmin and take_along_axis on a shard's metric): the
+// same two kernels with ``val`` not null also write the minimum each keeps in
+// registers, int64 [n_strips, C], beside its glyph. The unsharded launch
+// passes null and writes nothing more than before.
+//
+// K6, the first-minimum combine over glyph shards (decode.py:74-79, the
+// offset to the bank's glyph numbers, two all_gathers, an argmin over shards
+// and a take_along_axis): from every shard's partial (val, id), the ids
+// local to the shard's slice, the id of the smallest val, plus the number of
+// the slice's first glyph, the lowest shard on ties; with the shards in
+// ascending glyph ranges that is the global first minimum, and a padded copy
+// of glyph 0 (a later shard, glyph 0's value) never wins. It moves 12 bytes a
+// shard and 4 bytes out for each cell and does no arithmetic to speak of:
+// bound by bytes, and at a page's 3978 cells by its launch. One thread an
+// output, n_g strided loads, each coalesced across the warp.
+//
 // The int64 instance (the port's first K4): one block per strip, one warp
 // per cell, lanes over the glyphs, every lane reading the same window byte
 // (a broadcast) and its own glyph's template byte, a (metric, g) shuffle
@@ -74,6 +91,7 @@ constexpr int NWARPS = 16;   // warps of an mma block
 constexpr int KH = 5;        // k-steps of A fragments held in registers
 constexpr int SU = 4;        // staging loads a thread keeps in flight
 constexpr int WARPS64 = 8;   // warps of an int64 block
+constexpr int COMBINE_THREADS = 256;  // threads of a K6 block
 constexpr size_t SMEM_MAX = 232448 - 1024;  // shared memory a block may use on the H100
 
 __device__ __forceinline__ void mma_u8(int (&c)[4], const uint4& a, uint2 b)
@@ -116,7 +134,8 @@ __global__ void __launch_bounds__(NWARPS * 32)
 focr_ssd_argmin_mma(const uint8_t* __restrict__ strips, long long n_strips, int h, int crop_w,
                const uint2* __restrict__ bfrag, const int64_t* __restrict__ tsq,
                const int32_t* __restrict__ wx0, int C, int G, int win_w, int nks, int pitch,
-               int32_t* __restrict__ ids, bool* __restrict__ white)
+               int32_t* __restrict__ ids, bool* __restrict__ white,
+               long long* __restrict__ val)
 {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ unsigned int s_ink;  // bit m: strip m of the block has a byte != 255
@@ -249,6 +268,10 @@ focr_ssd_argmin_mma(const uint8_t* __restrict__ strips, long long n_strips, int 
         if (tq == 0) {
             if (gq < ms) ids[(m0 + gq) * C + c] = g_lo;
             if (gq + 8 < ms) ids[(m0 + gq + 8) * C + c] = g_hi;
+            if (val) {  // K4p: the minimum itself, for the combine over glyph shards
+                if (gq < ms) val[(m0 + gq) * C + c] = best_lo;
+                if (gq + 8 < ms) val[(m0 + gq + 8) * C + c] = best_hi;
+            }
         }
     }
 }
@@ -257,7 +280,8 @@ __global__ void __launch_bounds__(WARPS64 * 32)
 focr_ssd_argmin_int64(const uint8_t* __restrict__ strips, int h, int crop_w,
                  const uint8_t* __restrict__ tmpl, const int64_t* __restrict__ tsq,
                  const int32_t* __restrict__ wx0, int C, int G, int win_w,
-                 int32_t* __restrict__ ids, bool* __restrict__ white)
+                 int32_t* __restrict__ ids, bool* __restrict__ white,
+                 long long* __restrict__ val)
 {
     const long long strip = blockIdx.x;
     const uint8_t* s = strips + strip * h * crop_w;
@@ -297,8 +321,32 @@ focr_ssd_argmin_int64(const uint8_t* __restrict__ strips, int h, int crop_w,
                 best_g = og;
             }
         }
-        if (lane == 0) ids[strip * C + c] = best_g;
+        if (lane == 0) {
+            ids[strip * C + c] = best_g;
+            if (val) val[strip * C + c] = best_m;
+        }
     }
+}
+
+// K6: one thread an output; shards ascend and a strict < keeps the first, so
+// the lowest shard wins a tie. Shard s holds glyphs s * shard_glyphs and up:
+// its slice-local id becomes the bank's here.
+__global__ void __launch_bounds__(COMBINE_THREADS)
+focr_ssd_combine_kernel(const long long* __restrict__ vals, const int32_t* __restrict__ ids,
+                        int n_g, long long n, int shard_glyphs, int32_t* __restrict__ out)
+{
+    const long long i = static_cast<long long>(blockIdx.x) * COMBINE_THREADS + threadIdx.x;
+    if (i >= n) return;
+    long long best = vals[i];
+    int bg = ids[i];
+    for (int s = 1; s < n_g; ++s) {
+        const long long v = vals[s * n + i];
+        if (v < best) {
+            best = v;
+            bg = ids[s * n + i] + s * shard_glyphs;
+        }
+    }
+    out[i] = bg;
 }
 
 }  // namespace
@@ -307,11 +355,13 @@ focr_ssd_argmin_int64(const uint8_t* __restrict__ strips, int h, int crop_w,
 // bfrag: tmpl packed by ops/ssd_kernels.py::pack_template_fragments, uint2
 // [C, ceil(G/8), nks, 32] with nks = ceil(h * ceil(win_w/4) / 8) (read by the
 // mma instance only), tsq int64 [C, G], wx0 int32 [C] (>= 0) -> ids int32
-// [n_strips, C], white bool [n_strips]. Returns cudaGetLastError().
+// [n_strips, C], white bool [n_strips]; with ``val`` not null (K4p) also val
+// int64 [n_strips, C], the metric tsq - 2 * corr at that id. Returns
+// cudaGetLastError().
 extern "C" int focr_ssd_argmin(const void* strips, long long n_strips, int h, int crop_w,
                                const void* tmpl, const void* bfrag, const void* tsq,
                                const void* wx0, int C, int G, int win_w, void* ids, void* white,
-                               void* stream)
+                               void* val, void* stream)
 {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int nw4 = (win_w + 3) / 4;
@@ -331,12 +381,26 @@ extern "C" int focr_ssd_argmin(const void* strips, long long n_strips, int h, in
             static_cast<const uint8_t*>(strips), n_strips, h, crop_w,
             static_cast<const uint2*>(bfrag), static_cast<const int64_t*>(tsq),
             static_cast<const int32_t*>(wx0), C, G, win_w, nks, pitch,
-            static_cast<int32_t*>(ids), static_cast<bool*>(white));
+            static_cast<int32_t*>(ids), static_cast<bool*>(white), static_cast<long long*>(val));
     } else {
         focr_ssd_argmin_int64<<<static_cast<unsigned>(n_strips), WARPS64 * 32, 0, st>>>(
             static_cast<const uint8_t*>(strips), h, crop_w, static_cast<const uint8_t*>(tmpl),
             static_cast<const int64_t*>(tsq), static_cast<const int32_t*>(wx0), C, G, win_w,
-            static_cast<int32_t*>(ids), static_cast<bool*>(white));
+            static_cast<int32_t*>(ids), static_cast<bool*>(white), static_cast<long long*>(val));
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K6: vals int64 [n_g, n] and ids int32 [n_g, n] (shard s's partial minimum
+// and its glyph, local to the shard's slice of shard_glyphs glyphs) -> out
+// int32 [n]: the id, plus s * shard_glyphs, of the smallest val, the lowest
+// shard on ties. Returns cudaGetLastError().
+extern "C" int focr_ssd_combine(const void* vals, const void* ids, int n_g, long long n,
+                                int shard_glyphs, void* out, void* stream)
+{
+    const unsigned blocks = static_cast<unsigned>((n + COMBINE_THREADS - 1) / COMBINE_THREADS);
+    focr_ssd_combine_kernel<<<blocks, COMBINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(vals), static_cast<const int32_t*>(ids), n_g, n,
+        shard_glyphs, static_cast<int32_t*>(out));
     return static_cast<int>(cudaGetLastError());
 }

@@ -15,8 +15,11 @@ and maps glyph ids back to characters. Monospace fonts take this path (the
 cursor grid is static); proportional fonts take the sequential device
 decoder (models/focr_prop.py, K5), with the NumPy oracle
 (oracle/focr_oracle.py) only for degenerate metrics (a non-positive advance),
-as in focr_tpu. Batches are synchronous; focr_tpu's mesh sharding is not
-carried over.
+as in focr_tpu. Batches are synchronous. With a mesh (parallel/mesh.py) the
+batch is dealt over its slots: monospace row groups run parallel/decode.py's
+sharded step (pages over the pages axis, the glyph bank over the glyphs
+axis), proportional lines are dealt over every slot; the results are the
+single-slot path's, bit for bit.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from focr_tpu_torch.models.focr_prop import PropDecoder
 from focr_tpu_torch.models.types import DecodedLine, DecodeOptions, RenderOptions
 from focr_tpu_torch.ops.ssd_kernels import pack_template_fragments, ssd_argmin, ssd_plan
 from focr_tpu_torch.oracle import focr_oracle
+from focr_tpu_torch.parallel.mesh import fetch_global, pad_batch
 from focr_tpu_torch.utils.device import resolve_device
 
 
@@ -127,7 +131,10 @@ class GridDecoder:
     (fonts/bank.py::load_grid_bank, which loads each height when it is first
     asked for, or a plain dict) for the alphabet; with it no glyph is
     rendered, ``face`` may be None, and the set's kind decides the path (a
-    saved grid bank is monospace by construction)."""
+    saved grid bank is monospace by construction). ``mesh``: an optional
+    parallel/mesh.py::Mesh; batches are then dealt over its slots (a mesh of
+    one slot is the same as none), ``device`` stays the first slot's, and the
+    results are identical either way."""
 
     def __init__(
         self,
@@ -138,6 +145,7 @@ class GridDecoder:
         page_shape: tuple[int, int],
         device: str | torch.device,
         banks: Mapping[int, FocrBank] | None = None,
+        mesh=None,
     ):
         if face is None and banks is None:
             raise ValueError("GridDecoder: needs a face or a preloaded bank set")
@@ -146,7 +154,9 @@ class GridDecoder:
         self.dopts = dopts
         self.ropts = ropts
         self.page_shape = page_shape
-        self.device = resolve_device(device)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self.device = resolve_device(
+            device if self.mesh is None else self.mesh.local_slots[0].device)
         self.bank_set = banks
         H, W = page_shape
         self.x0 = min(dopts.x_start, W)
@@ -165,19 +175,27 @@ class GridDecoder:
             self.monospace = is_monospace(face, alphabet, ropts)
         self._codes = np.array([ord(c) for c in alphabet], dtype=np.uint32)
         self._ascii = bool(alphabet) and max(map(ord, alphabet)) < 128
-        self.groups: list[tuple[_RowGroup, StripForward]] = []
+        # per row group its step: a StripForward, or with a mesh the sharded fn
+        self.groups: list[tuple[_RowGroup, object]] = []
         self.prop_groups: list[tuple[_RowGroup, PropDecoder]] = []
         self.banks: list[GridBank] = []
         if self.crop_w > 0 and self.monospace:
             for grp in _row_groups(dopts, H):
                 bank = self._bank(grp.crop_h)
                 self.banks.append(bank)
-                self.groups.append((grp, StripForward(bank, self.device)))
+                if self.mesh is not None:
+                    from focr_tpu_torch.parallel.decode import make_sharded_grid_fn
+
+                    fn = make_sharded_grid_fn(bank, grp.ys, self.x0, self.mesh)
+                else:
+                    fn = StripForward(bank, self.device)
+                self.groups.append((grp, fn))
         if self.crop_w > 0 and not self.monospace:
             prop = [(grp, self._bank(grp.crop_h)) for grp in _row_groups(dopts, H)]
             if all(float(b.advances.min()) > 0 for _, b in prop):
                 self.prop_groups = [
-                    (grp, PropDecoder(b, self.crop_w, self.device)) for grp, b in prop
+                    (grp, PropDecoder(b, self.crop_w, self.device, mesh=self.mesh))
+                    for grp, b in prop
                 ]
             elif face is None:
                 # focr_tpu's route for a non-positive advance is the oracle,
@@ -250,9 +268,16 @@ class GridDecoder:
             for b in range(B)
         ]
 
-    def _dispatch(self, pages: np.ndarray) -> list:
+    def _dispatch(self, pages: np.ndarray) -> tuple[int, list]:
         """Crop every row group's strips into ONE flat host buffer (filled in
-        place), upload it once, and run each group's step on its slice."""
+        place), upload it once, and run each group's step on its slice. With
+        a mesh: pad the batch with white pages to a multiple of its size and
+        run each group's sharded step on the padded pages. Returns (pages in
+        the batch, each group's outputs)."""
+        n = pages.shape[0]
+        if self.mesh is not None:
+            pages, _ = pad_batch(pages, self.mesh.size)
+            return n, [fn(pages) for _, fn in self.groups]
         B = pages.shape[0]
         sizes = [B * len(g.ys) * g.crop_h * self.crop_w for g, _ in self.groups]
         flat = np.empty(sum(sizes), dtype=np.uint8)
@@ -268,14 +293,18 @@ class GridDecoder:
             strips = flat_d[off : off + sz].view(B, len(grp.ys), grp.crop_h, self.crop_w)
             outs.append(fwd(strips))
             off += sz
-        return outs
+        return n, outs
 
     def _finish(self, outs) -> list[list[DecodedLine]]:
         """Fetch one batch's results and assemble text lines in ascending y
         across the row groups."""
+        n, group_outs = outs
+        # one round of copies for every group; a mesh's blocks come back in
+        # page order, from every process that holds some
+        fetched = fetch_global(group_outs)
         per_row: dict[int, tuple[np.ndarray, np.ndarray]] = {}  # y -> (ids [B,C], white [B])
-        for (grp, _), (ids, white) in zip(self.groups, outs):
-            ids, white = ids.cpu().numpy(), white.cpu().numpy()
+        for (grp, _), (ids, white) in zip(self.groups, fetched):
+            ids, white = ids[:n], white[:n]  # mesh padding: the white filler pages go
             for ri, y in enumerate(grp.ys):
                 per_row[y] = (ids[:, ri], white[:, ri])
         ys_sorted = sorted(per_row)
@@ -312,18 +341,21 @@ _DECODER_CACHE: OrderedDict[tuple, GridDecoder] = OrderedDict()
 _DECODER_CACHE_MAX = 16
 
 
-def _cached_decoder(face, alphabet, dopts, ropts, shape, device, banks=None) -> GridDecoder:
+def _cached_decoder(face, alphabet, dopts, ropts, shape, device, banks=None,
+                    mesh=None) -> GridDecoder:
     """Reuse GridDecoders (and their banks on the device) across decode_pages
     calls, LRU-evicted so a mixed-shape corpus never drops its hot decoder."""
     # a bank set keys by identity: the cached decoder holds it, so its id
-    # cannot be reused by another object while the entry lives
+    # cannot be reused by another object while the entry lives. The mesh keys
+    # by VALUE (its devices, their order, the axis sizes): an id() key could
+    # hand out a decoder built for a dead mesh whose address a new one reuses
     key = (
         face.path if face is not None else None, alphabet, dopts, ropts, shape,
-        str(resolve_device(device)), id(banks) if banks is not None else None,
+        str(resolve_device(device)), id(banks) if banks is not None else None, mesh,
     )
     dec = _DECODER_CACHE.get(key)
     if dec is None:
-        dec = GridDecoder(face, alphabet, dopts, ropts, shape, device, banks=banks)
+        dec = GridDecoder(face, alphabet, dopts, ropts, shape, device, banks=banks, mesh=mesh)
         while len(_DECODER_CACHE) >= _DECODER_CACHE_MAX:
             _DECODER_CACHE.popitem(last=False)  # evict least recently used
         _DECODER_CACHE[key] = dec
@@ -341,14 +373,17 @@ def decode_pages(
     device: str | torch.device,
     batch_size: int = 16,
     banks: Mapping[int, FocrBank] | None = None,
+    mesh=None,
 ) -> list[list[DecodedLine]]:
     """Decode a heterogeneous page list: bucket by shape, batch, reassemble.
 
     Replaces the rayon page fan-out (main.rs:442-471); page order is restored
-    exactly as the reference's sort-by-index does (main.rs:468)."""
+    exactly as the reference's sort-by-index does (main.rs:468). ``mesh``
+    deals each batch over a mesh of slots (several cards, or one card's
+    streams)."""
     results: list[list[DecodedLine] | None] = [None] * len(pages)
     for bucket in bucket_pages(pages):
-        dec = _cached_decoder(face, alphabet, dopts, ropts, bucket.shape, device, banks)
+        dec = _cached_decoder(face, alphabet, dopts, ropts, bucket.shape, device, banks, mesh)
         for s, decoded in decode_stream(dec, bucket.pages, batch_size):
             for j, lines in enumerate(decoded):
                 results[bucket.indices[s + j]] = lines
@@ -363,7 +398,7 @@ def decode_single_stream(dec: GridDecoder, page: np.ndarray, rows_per_chunk: int
     the moment it is decoded (main.rs:427-440). Chunks of ``rows_per_chunk``
     rows go through the same step as decode_batch, one after another; the
     output equals ``decode_batch(page[None])[0]``."""
-    if not dec.monospace or dec.crop_w == 0 or not dec.groups:
+    if dec.mesh is not None or not dec.monospace or dec.crop_w == 0 or not dec.groups:
         for lines in dec.decode_batch(page[None]):
             yield from lines
         return

@@ -23,6 +23,7 @@ import torch
 
 from focr_tpu_torch.fonts.bank import PropBank
 from focr_tpu_torch.ops.prop_kernels import END_ID, check_bank, prop_scan, template_words
+from focr_tpu_torch.parallel.mesh import SLOTS, Sharded, fetch_global, put_global
 
 
 def max_steps(bank: PropBank, crop_w: int) -> int:
@@ -65,19 +66,47 @@ class PropForward(torch.nn.Module):
 
 class PropDecoder:
     """Device-side sequential decoder for one (crop_h, crop_w) line shape on
-    one device ("cuda" runs K5, "cpu" its plain version)."""
+    one device ("cuda" runs K5, "cpu" its plain version).
 
-    def __init__(self, bank: PropBank, crop_w: int, device: torch.device):
+    With a mesh (parallel/mesh.py) the line batch is dealt in contiguous
+    blocks over every slot, pages and glyphs axes alike (each line's scan is
+    independent: pure data parallelism over the lines, focr_tpu/models/
+    focr_prop.py:195-210), each slot with its own PropForward and one K5
+    launch, and the texts come back in line order. The caller has dropped
+    the white strips, so a slot may get no line: it then launches nothing."""
+
+    def __init__(self, bank: PropBank, crop_w: int, device: torch.device, mesh=None):
         self.bank = bank
         self.crop_w = crop_w
         self.device = device
         self.n_steps = max_steps(bank, crop_w)
-        self.fwd = PropForward(bank, crop_w, self.n_steps, device)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        if self.mesh is None:
+            self.fwd = PropForward(bank, crop_w, self.n_steps, device)
+            return
+        self.fwds: dict[int, PropForward] = {}
+        for slot in self.mesh.local_slots:
+            with slot.context():  # the bank goes up on the slot's own stream
+                self.fwds[slot.index] = PropForward(bank, crop_w, self.n_steps, slot.device)
+        self.fwd = self.fwds[self.mesh.local_slots[0].index]
+
+    def _scan(self, strips: np.ndarray) -> np.ndarray:
+        """[L, crop_h, crop_w] u8 -> ids u8 [L, n_steps] on the host."""
+        strips = np.ascontiguousarray(strips)
+        if self.mesh is None:
+            return self.fwd(torch.from_numpy(strips).to(self.device)).cpu().numpy()
+        outs = []
+        for slot, idx, block in put_global(strips, self.mesh, SLOTS).shards:
+            if block.shape[0] == 0:
+                continue
+            with slot.context():
+                outs.append((slot, idx, self.fwds[slot.index](block)))
+        return fetch_global(
+            Sharded(self.mesh, (strips.shape[0], self.n_steps), torch.uint8, outs, SLOTS))
 
     def decode_lines(self, strips: np.ndarray) -> list[str]:
         """strips: [L, crop_h, crop_w] INVERTED line crops -> decoded texts."""
-        ids = self.fwd(torch.from_numpy(np.ascontiguousarray(strips)).to(self.device))
-        ids = ids.cpu().numpy()
+        ids = self._scan(strips)
         ends = ids == END_ID
         lens = np.where(ends.any(axis=1), ends.argmax(axis=1), ids.shape[1])
         alphabet = self.bank.alphabet

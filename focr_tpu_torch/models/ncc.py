@@ -32,6 +32,14 @@ replay (replay_group_reference) is kept as the plain version the tests and
 chip_smoke.py hold the native one against. focr_tpu's transport-era machinery
 (candidate caps and redo ladders, wire codecs, adaptive wave and depth sizing)
 has nothing to do on a local card and is not carried over: the depth is fixed.
+
+On a mesh (parallel/mesh.py; get_hits_many_sharded) the same three stages
+run with waves of WAVE pages for every slot: the dispatch thread deals a wave
+round-robin over the slots (_scatter_waves, focr_tpu/models/ncc.py:722-789),
+each slot with its own needle banks, stream and pinned pool (_SlotState), and
+the fetch stage puts the pages back in order. Under several processes each
+sweeps and replays a strided share of the corpus on its own slots and the
+packed hits are all-gathered as host bytes (_get_hits_many_multiproc).
 """
 
 from __future__ import annotations
@@ -62,7 +70,8 @@ from focr_tpu_torch.ops.ncc_kernels import (
     sweep_terms,
     to_host,
 )
-from focr_tpu_torch.utils.device import resolve_device
+from focr_tpu_torch.parallel import mesh as mesh_mod
+from focr_tpu_torch.utils.device import resolve_device, slot_scope
 
 WAVE = 8  # pages per device wave
 # waves in flight beyond the one being collected (focr_tpu/models/ncc.py:565-613
@@ -128,6 +137,20 @@ class _Dispatched:
     pos: torch.Tensor | None  # int32, on the host: group g's positions are pos[lo:hi]
     event: "torch.cuda.Event | None"  # a card: recorded behind the wave's last copy
     held: list[torch.Tensor]  # pinned buffers (pos lies in one) to give back after the event
+    pool: "_PinnedPool | None"  # where they go back to: the pool of the slot that swept
+
+
+@dataclass
+class _SlotState:
+    """What the device stage needs on one slot: the needle banks there, the
+    stream it works on and the pinned staging pool (a card only). The matcher
+    holds one for its own device and one for each mesh slot it has met."""
+
+    device: torch.device
+    dev_groups: list
+    stream: "torch.cuda.Stream | None"
+    pinned: "_PinnedPool | None"
+    slot: "mesh_mod.Slot | None"
 
 _NO_STREAM = contextlib.nullcontext()  # the CPU's place for torch.cuda.stream
 
@@ -168,6 +191,38 @@ class HitStruct:
             )
             i = j
         return out
+
+
+def _pack_hits_payload(structs: list["HitStruct"]) -> bytes:
+    """Serialize per-page hit structs for the multi-process result
+    all-gather: per page — n i64, then nid i32[n], x i32[n], y i32[n], sim
+    f32[n] (focr_tpu/models/ncc.py:154-167, byte for byte). Coordinates fit
+    i32 for any real page (the reference caps them at u16, ncc.rs:66-72); f32
+    similarity bits travel verbatim, so the decode side reconstructs
+    bit-identical hits."""
+    parts: list[bytes] = []
+    for s in structs:
+        parts.append(np.int64(len(s.x)).tobytes())
+        parts.append(np.ascontiguousarray(s.needle_id, np.int32).tobytes())
+        parts.append(s.x.astype(np.int32).tobytes())
+        parts.append(s.y.astype(np.int32).tobytes())
+        parts.append(np.ascontiguousarray(s.sim, np.float32).tobytes())
+    return b"".join(parts)
+
+
+def _unpack_hits_payload(buf: bytes) -> list[tuple]:
+    """Inverse of _pack_hits_payload: list of (nid, x, y, sim) per page."""
+    out: list[tuple] = []
+    off = 0
+    while off < len(buf):
+        n = int(np.frombuffer(buf, np.int64, 1, off)[0])
+        off += 8
+        arrs = []
+        for dt in (np.int32, np.int32, np.int32, np.float32):
+            arrs.append(np.frombuffer(buf, dt, n, off))
+            off += 4 * n
+        out.append(tuple(arrs))
+    return out
 
 
 def _ink_crop(inv: np.ndarray, H: int, W: int, groups) -> tuple | None:
@@ -398,14 +453,41 @@ class NccMatcher:
             needles = build_needles(face, alphabet, ropts, box_size, x_bits, y_bits, padding)
         self.needles = needles
         self.groups = _group_needles(self.needles)
-        self.dev_groups = [
-            group_from_numpy(g.bank, g.s_n, g.s2_n, self.threshold, self.device)
-            for g in self.groups
-        ]
-        # the device stage's own stream and staging buffers (a card only)
+        # per slot: the banks on its device, the device stage's stream and its
+        # staging buffers. None is the matcher's own device (a side stream of
+        # its own); a mesh's slots are added as they are first swept on
         cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if cuda else None
-        self._pinned = _PinnedPool() if cuda else None
+        self._states: dict[tuple | None, _SlotState] = {None: _SlotState(
+            self.device, self._upload_groups(self.device),
+            torch.cuda.Stream(self.device) if cuda else None,
+            _PinnedPool() if cuda else None, None)}
+        self._states_lock = threading.Lock()
+
+    @property
+    def dev_groups(self) -> list[DeviceGroup]:
+        """The needle banks on the matcher's own device."""
+        return self._states[None].dev_groups
+
+    def _upload_groups(self, device: torch.device) -> list[DeviceGroup]:
+        return [group_from_numpy(g.bank, g.s_n, g.s2_n, self.threshold, device)
+                for g in self.groups]
+
+    def _state(self, slot) -> _SlotState:
+        """The device stage's state on ``slot`` (None: the matcher's own
+        device), built when the slot is first swept on: the banks go up on
+        the slot's own stream, so nothing has to wait for another stream."""
+        if slot is None:
+            return self._states[None]
+        key = (slot.index, str(slot.device))  # by value: an equal mesh finds its banks
+        with self._states_lock:
+            st = self._states.get(key)
+            if st is None:
+                with slot.context():
+                    groups = self._upload_groups(slot.device)
+                st = _SlotState(slot.device, groups, slot.stream,
+                                _PinnedPool() if slot.device.type == "cuda" else None, slot)
+                self._states[key] = st
+            return st
 
     def get_hits(
         self, page: np.ndarray, verbose: bool = False, raw: bool = False, out=None,
@@ -439,15 +521,72 @@ class NccMatcher:
         lines keep the reference's order. ``post``: applied to each page's
         hits inside its collect task; the list then holds post(hits) per
         page. An exception in any stage is raised here."""
+        return self._scatter_waves(pages, [None], verbose, struct, post)
+
+    def get_hits_many_sharded(
+        self, pages: list[np.ndarray], mesh, verbose: bool = False,
+        struct: bool = False, post=None,
+    ) -> list:
+        """Multi-card corpus search (focr_tpu/models/ncc.py:615-647): the
+        pages are dealt over every slot of the mesh, pages and glyphs axes
+        alike (data parallelism: ncc has no glyph axis worth sharding), each
+        slot sweeping its pages with K1 and K2; the host replay is unchanged.
+        Bit-identical to get_hits_many. Pages should share one shape (the
+        caller buckets).
+
+        Under several processes each sweeps and replays a strided share of
+        the corpus on its own slots and the hit arrays are all-gathered
+        (_get_hits_many_multiproc), so every process returns every page.
+        ``verbose`` prints per-search lines during collection, and a process
+        only collects its own share: a verbose run under several processes
+        therefore runs the whole corpus on each process's own slots."""
+        if not pages:
+            return []
+        if len(mesh.owners) > 1:
+            if not verbose:
+                return self._get_hits_many_multiproc(pages, mesh, struct, post)
+            print(
+                "focr_tpu_torch: multi-process --verbose run: every process searches "
+                "the whole corpus on its own slots (per-search diagnostics need every "
+                "page's replay on every process)",
+                file=sys.stderr,
+            )
+        return self._scatter_waves(pages, mesh.local_slots, verbose, struct, post)
+
+    def _scatter_waves(
+        self, pages: list[np.ndarray], slots: list, verbose: bool, struct: bool, post,
+    ) -> list:
+        """The three-stage pipeline over ``slots`` (mesh slots, or [None] for
+        the matcher's own device: then this is get_hits_many's single-card
+        path). A wave is WAVE pages for every slot; slot d takes pages d, d+D,
+        d+2D, ... of it (focr_tpu/models/ncc.py:766-774) and sweeps them in
+        one dispatch on its own stream; the fetch stage restores the page
+        order. One dispatch thread deals to every slot, so the launch and
+        wait counters keep a single writer each. A slot with fewer pages
+        simply sweeps fewer: inverted pages need no filler."""
+        D = len(slots)
 
         def collect_one(d):
             hits = self._collect_page(d, verbose, False, None, struct)
             return post(hits) if post is not None else hits
 
+        def dispatch(sub: list) -> tuple[list, int]:
+            return [(d, self._dispatch_wave(sub[d::D], slot=slots[d]))
+                    for d in range(D) if sub[d::D]], len(sub)
+
+        def fetch(dfut: cf.Future) -> list:
+            sub_waves, n = dfut.result()
+            merged: list = [None] * n
+            for d, disp in sub_waves:  # back from the round-robin deal
+                for k, tup in enumerate(self._fetch_wave(disp)):
+                    merged[d + k * D] = tup
+            return merged
+
         out: list = []
-        if self._stream is not None:
+        own = self._states[None]
+        if None in slots and own.stream is not None:
             # the groups' banks were uploaded on the caller's stream
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            own.stream.wait_stream(torch.cuda.current_stream(self.device))
         with (
             cf.ThreadPoolExecutor(max_workers=1) as dpool,
             cf.ThreadPoolExecutor(max_workers=1) as fpool,
@@ -462,9 +601,9 @@ class NccMatcher:
 
             pending: deque[tuple[cf.Future, cf.Future]] = deque()
             try:
-                for s in range(0, len(pages), WAVE):
-                    dfut = dpool.submit(self._dispatch_wave, pages[s : s + WAVE])
-                    ffut = fpool.submit(lambda f: self._fetch_wave(f.result()), dfut)
+                for s in range(0, len(pages), WAVE * D):
+                    dfut = dpool.submit(dispatch, pages[s : s + WAVE * D])
+                    ffut = fpool.submit(fetch, dfut)
                     pending.append((dfut, ffut))
                     if len(pending) > PIPELINE_DEPTH:
                         collect_wave(pending.popleft()[1].result())
@@ -478,33 +617,81 @@ class NccMatcher:
                         f.cancel()
         return out
 
+    def _get_hits_many_multiproc(self, pages: list[np.ndarray], mesh, struct: bool, post) -> list:
+        """The mesh path under several processes (focr_tpu/models/ncc.py:
+        791-861): each process scatters a strided share of the corpus
+        (pages[rank::P] for the owner of rank ``rank``) over its OWN slots and
+        replays its hits exactly on the host; then the per-page hit ARRAYS —
+        not device buffers — are all-gathered over gloo, so every process
+        reconstructs the identical full ordered result. The lengths go first,
+        then one u8 buffer padded to the longest (mesh.all_gather_bytes).
+
+        Bit parity: each page is produced by exactly ONE process through the
+        same scatter as the single-process path; the wire carries i32
+        coordinates and raw f32 similarity bits, both lossless."""
+        owners = mesh.owners
+        if mesh.rank in owners:
+            mine = pages[owners.index(mesh.rank) :: len(owners)]
+            structs = self._scatter_waves(mine, mesh.local_slots, False, True, None) if mine else []
+        else:
+            structs = []
+        payloads = mesh_mod.all_gather_bytes(_pack_hits_payload(structs))
+        # parse each owner's payload once, then deal the pages back out in
+        # global order (page g belongs to owner g % P, its g // P-th)
+        per_proc = {p: _unpack_hits_payload(payloads[p]) for p in owners}
+        out = []
+        for g in range(len(pages)):
+            nid, xs, ys, sims = per_proc[owners[g % len(owners)]][g // len(owners)]
+            hits = (
+                HitStruct(needle_id=nid, x=xs.astype(np.int64), y=ys.astype(np.int64),
+                          sim=sims, matcher=self)
+                if struct
+                else [
+                    MatchWithLetter(
+                        self.needles[i].letter, int(x), int(y),
+                        self.needles[i].pixels.shape[1], self.needles[i].pixels.shape[0],
+                        float(s),
+                    )
+                    for i, x, y, s in zip(nid.tolist(), xs.tolist(), ys.tolist(), sims.tolist())
+                ]
+            )
+            out.append(post(hits) if post is not None else hits)
+        return out
+
     def _sweep_wave(self, batch: list[np.ndarray]) -> list[tuple]:
         """The device stage for one wave, start to end: _dispatch_wave, then
         _fetch_wave."""
         return self._fetch_wave(self._dispatch_wave(batch))
 
-    def _dispatch_wave(self, batch: list[np.ndarray], measure: dict | None = None) -> _Dispatched:
+    def _dispatch_wave(
+        self, batch: list[np.ndarray], slot=None, measure: dict | None = None,
+    ) -> _Dispatched:
         """First half of the device stage for one wave: per page shape,
         invert, crop to the wave's ink bbox, upload once; per size group K1,
         K2's count kernel, one wait for the group's counts (they size its
         output), K2's emit kernel; then every group's positions are copied to
         one pinned host buffer without blocking and an event is recorded
-        behind the copies. On a card all of it runs on the matcher's side
-        stream. A wave with G swept groups waits G times here and once in
-        _fetch_wave (HOST_WAITS).
+        behind the copies. On a card all of it runs on the slot's stream
+        (``slot``: a mesh slot, or None for the matcher's own device and side
+        stream), with the slot's card as the current device. A wave with G
+        swept groups waits G times here and once in _fetch_wave (HOST_WAITS).
 
         ``measure``: a dict; when given, the device is fenced after the
         upload and after every size group, and measure[(nh, nw)] accumulates
         the group's wall-clock seconds, the upload excluded from the first
         group's span (--verbose-sync; focr_tpu/models/ncc.py:945-1006)."""
-        cuda = self.device.type == "cuda"
+        st = self._state(slot)
+        cuda = st.device.type == "cuda"
         with (
             record_function("focr_ncc_dispatch_wave"),
-            torch.cuda.stream(self._stream) if cuda else _NO_STREAM,
+            torch.cuda.device(st.device) if cuda else _NO_STREAM,
+            torch.cuda.stream(st.stream) if cuda else _NO_STREAM,
+            slot_scope(st.slot.index) if st.slot is not None else _NO_STREAM,
         ):
-            return self._dispatch(batch, measure, cuda)
+            return self._dispatch(batch, measure, st)
 
-    def _dispatch(self, batch, measure, cuda: bool) -> _Dispatched:
+    def _dispatch(self, batch, measure, st: _SlotState) -> _Dispatched:
+        cuda = st.device.type == "cuda"
         t0 = time.perf_counter()
         by_shape: dict[tuple[int, int], list[int]] = {}
         for i, p in enumerate(batch):
@@ -533,16 +720,16 @@ class NccMatcher:
                 if cuda:
                     # the crop lands in a pinned buffer the wave holds until
                     # its event, and goes up without blocking this thread
-                    stage = self._pinned.take(cropped.size)
+                    stage = st.pinned.take(cropped.size)
                     held.append(stage)
                     staged = stage[: cropped.size].view(cropped.shape)
                     np.copyto(staged.numpy(), cropped)
-                    inv_dev = staged.to(self.device, non_blocking=True)
+                    inv_dev = staged.to(st.device, non_blocking=True)
                 else:
                     inv_dev = torch.from_numpy(np.ascontiguousarray(cropped))
                 if measure is not None and cuda:
-                    torch.cuda.synchronize(self.device)  # the upload is not a group's time
-                for grp, dg in zip(self.groups, self.dev_groups):
+                    torch.cuda.synchronize(st.device)  # the upload is not a group's time
+                for grp, dg in zip(self.groups, st.dev_groups):
                     if grp.nh >= H or grp.nw >= W or grp.nh >= Hc or grp.nw >= Wc:
                         # past the page (reference semantics) or past the crop
                         # (a window overlapping ink cannot fit: Hc >= 2·nh + ink)
@@ -563,7 +750,7 @@ class NccMatcher:
                     del mask, rcnt, row_off  # free before the next group's sweep
                     if measure is not None:
                         if cuda:
-                            torch.cuda.synchronize(self.device)
+                            torch.cuda.synchronize(st.device)
                         key = (grp.nh, grp.nw)
                         measure[key] = measure.get(key, 0.0) + time.perf_counter() - tg
                     swept.append((plans, len(plans[0]), grp, off, hcnt, n_pos, n_pos + total))
@@ -574,7 +761,7 @@ class NccMatcher:
                 per_page[i] = (batch[i], inv[k], plans[k], t0, crop)
         pos = event = None
         if swept and cuda:
-            buf = self._pinned.take(4 * n_pos)
+            buf = st.pinned.take(4 * n_pos)
             held.append(buf)
             pos = buf[: 4 * n_pos].view(torch.int32)
             for (*_, lo, hi), p in zip(swept, pos_dev):
@@ -584,7 +771,7 @@ class NccMatcher:
         if held:  # behind every copy that reads or writes a held buffer
             event = torch.cuda.Event()
             event.record()
-        return _Dispatched(per_page, swept, pos, event, held)
+        return _Dispatched(per_page, swept, pos, event, held, st.pinned)
 
     def _fetch_wave(self, disp: _Dispatched) -> list[tuple]:
         """Second half of the device stage: one wait for the wave's event
@@ -606,7 +793,7 @@ class NccMatcher:
                 for k, pp in enumerate(plans):
                     pp[slot] = (grp, "sweep", (pos[lo:hi][off[k] : off[k + 1]], hcnt[k]))
         for buf in disp.held:
-            self._pinned.give(buf)
+            disp.pool.give(buf)
         disp.held = []
         return disp.per_page
 

@@ -148,8 +148,10 @@ def load() -> ctypes.CDLL:
     lib.focr_ncc_compact_count.restype = i
     lib.focr_ncc_compact.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
     lib.focr_ncc_compact.restype = i
-    lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i, i, i, p, p, p]
+    lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i, i, i, p, p, p, p]
     lib.focr_ssd_argmin.restype = i
+    lib.focr_ssd_combine.argtypes = [p, p, i, ctypes.c_longlong, i, p, p]
+    lib.focr_ssd_combine.restype = i
     lib.focr_prop_scan.argtypes = [p, i, i, i, p, i, p, p, i, i, i, f, i, p, p]
     lib.focr_prop_scan.restype = i
     _lib = lib

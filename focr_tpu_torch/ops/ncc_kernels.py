@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from focr_tpu_torch.ops.ncc import window_stats, word_stride
+from focr_tpu_torch.utils.device import count_launch, launch_stream
 
 EPS = 1e-3
 LAUNCHES = {"ncc_sweep": 0, "compact_count": 0, "compact_hits": 0}
@@ -297,16 +298,16 @@ def ncc_sweep(
         raise ValueError("ncc_sweep: afrag must be pack_needle_fragments(needles)")
     from focr_tpu_torch.native.build import load
 
-    rc = load().focr_ncc_sweep(
-        imgs.data_ptr(), B, H, W, afrag.data_ptr(), T, nh, nw,
-        sn_n.data_ptr(), rtn.data_ptr(), thr_eps, inv_n,
-        mask.data_ptr(), rcnt.data_ptr(),
-        torch.cuda.current_stream(imgs.device).cuda_stream,
-        int(wide), err, c_den, slack,
-    )
+    with launch_stream(imgs) as stream:
+        rc = load().focr_ncc_sweep(
+            imgs.data_ptr(), B, H, W, afrag.data_ptr(), T, nh, nw,
+            sn_n.data_ptr(), rtn.data_ptr(), thr_eps, inv_n,
+            mask.data_ptr(), rcnt.data_ptr(), stream,
+            int(wide), err, c_den, slack,
+        )
     if rc != 0:
         raise RuntimeError(f"ncc_sweep kernel launch failed: CUDA error {rc}")
-    LAUNCHES["ncc_sweep"] += 1
+    count_launch(LAUNCHES, "ncc_sweep")
     return mask, rcnt
 
 
@@ -382,14 +383,14 @@ def compact_counts(rcnt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if rows:
         from focr_tpu_torch.native.build import load
 
-        rc = load().focr_ncc_compact_count(
-            rcnt.data_ptr(), B, T, Hs, row_off.data_ptr(), off.data_ptr(), hcnt.data_ptr(),
-            nz.data_ptr(), buf[at:].data_ptr(), buf[at + 8 * blocks :].data_ptr(),
-            torch.cuda.current_stream(rcnt.device).cuda_stream,
-        )
+        with launch_stream(rcnt) as stream:
+            rc = load().focr_ncc_compact_count(
+                rcnt.data_ptr(), B, T, Hs, row_off.data_ptr(), off.data_ptr(), hcnt.data_ptr(),
+                nz.data_ptr(), buf[at:].data_ptr(), buf[at + 8 * blocks :].data_ptr(), stream,
+            )
         if rc != 0:
             raise RuntimeError(f"compact_counts kernel launch failed: CUDA error {rc}")
-        LAUNCHES["compact_count"] += 1
+        count_launch(LAUNCHES, "compact_count")
     return row_off, head
 
 
@@ -416,13 +417,14 @@ def compact_emit(
     if total:
         from focr_tpu_torch.native.build import load
 
-        rc = load().focr_ncc_compact(
-            mask.data_ptr(), rcnt.data_ptr(), row_off.data_ptr(), pos.data_ptr(),
-            B * T * Hs, Hs, NW, torch.cuda.current_stream(mask.device).cuda_stream,
-        )
+        with launch_stream(mask) as stream:
+            rc = load().focr_ncc_compact(
+                mask.data_ptr(), rcnt.data_ptr(), row_off.data_ptr(), pos.data_ptr(),
+                B * T * Hs, Hs, NW, stream,
+            )
         if rc != 0:
             raise RuntimeError(f"compact_hits kernel launch failed: CUDA error {rc}")
-        LAUNCHES["compact_hits"] += 1
+        count_launch(LAUNCHES, "compact_hits")
     return pos
 
 
@@ -433,11 +435,12 @@ def to_host(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     if not tensors or tensors[0].device.type == "cpu":
         return list(tensors)
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    done.synchronize()
+    with torch.cuda.device(tensors[0].device):  # the event belongs to the tensors' card
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
     return host
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from focr_tpu_torch.ops.ssd import argmin_glyph
+from focr_tpu_torch.utils.device import count_launch, launch_stream
 
 END_ID = 255  # u8 sentinel: the cursor passed the width bound
 PHASES = 64
@@ -179,12 +180,13 @@ def prop_scan(
         tuple(tw.shape[:2]) != (PHASES, G) or tw.shape[2] != -(-h * -(-wbank // 4) // 32) * 32
     ):
         raise ValueError("prop_scan: words must be template_words(templates)")
-    rc = load().focr_prop_scan(
-        strips.data_ptr(), L, h, crop_w, tw.data_ptr(), tw.shape[2], colsq_cum.data_ptr(),
-        advances.data_ptr(), G, wbank, int(base), float(ox), n_steps, ids.data_ptr(),
-        torch.cuda.current_stream(strips.device).cuda_stream,
-    )
+    with launch_stream(strips) as stream:
+        rc = load().focr_prop_scan(
+            strips.data_ptr(), L, h, crop_w, tw.data_ptr(), tw.shape[2], colsq_cum.data_ptr(),
+            advances.data_ptr(), G, wbank, int(base), float(ox), n_steps, ids.data_ptr(),
+            stream,
+        )
     if rc != 0:
         raise RuntimeError(f"prop_scan kernel launch failed: CUDA error {rc}")
-    LAUNCHES["prop_scan"] += 1
+    count_launch(LAUNCHES, "prop_scan")
     return ids

@@ -1,0 +1,126 @@
+"""The mesh-sharded focr grid step, on PyTorch.
+
+Counterpart of focr_tpu/parallel/decode.py. Replaces the reference's rayon
+page fan-out (main.rs:442-471) with a (pages x glyphs) mesh of slots
+(parallel/mesh.py):
+
+  * pages axis: each page row of the mesh takes a block of the page batch.
+  * glyphs axis: the template bank's glyph dimension is sliced over the
+    slots of a row. Each slot runs K4p (ops/ssd_kernels.py::
+    ssd_argmin_partial) on its slice — a partial first-minimum, the minimum
+    metric and its glyph — the partials are copied to the row's first slot
+    (mesh.gather_group) and K6 (first_min_combine) takes the first minimum
+    over shards, turning the slice's glyph number into the bank's. Shards
+    hold contiguous ascending glyph ranges and K6 prefers the lower shard on
+    ties, so the combined result is the reference's first-minimum tie-break
+    (min_by_key, main.rs:159-172) exactly.
+
+Glyph padding: when the glyph count doesn't divide the shard count, the bank
+is padded with copies of glyph 0. A padded duplicate can never win: its
+metric equals glyph 0's, glyph 0 lives in shard 0 at index 0, and both the
+partial and the combine prefer the earlier index on ties.
+
+focr_tpu's ``make_sharded_ncc_fn`` (its decode.py:101-129) is the sharded
+form of the ``device_kernel="xla"`` engine. The port has one sweep kernel and
+no second engine (--device-kernel is accepted and unused), so it has no
+counterpart here: the ncc matcher's mesh path is the scatter of waves over
+the slots (models/ncc.py::get_hits_many_sharded), each slot running K1 and
+K2 on its own pages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from focr_tpu_torch.fonts.bank import GridBank
+from focr_tpu_torch.ops.ssd_kernels import first_min_combine, ssd_argmin_partial
+from focr_tpu_torch.parallel.mesh import (
+    GLYPHS_AXIS, PAGES_AXIS, Mesh, Sharded, gather_group, put_global,
+)
+
+
+def _pad_glyph_axis(arr: np.ndarray, g_mult: int) -> np.ndarray:
+    """Pad axis 1 (glyphs) to a multiple of g_mult with copies of glyph 0."""
+    G = arr.shape[1]
+    rem = (-G) % g_mult
+    if rem == 0:
+        return arr
+    fill = np.repeat(arr[:, :1], rem, axis=1)
+    return np.concatenate([arr, fill], axis=1)
+
+
+def shard_grid_bank(
+    templates: np.ndarray, tsq: np.ndarray, n_g: int
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """A grid bank's arrays (templates [C, G, h, win] u8, tsq [C, G]) cut
+    into ``n_g`` glyph slices, padded as _pad_glyph_axis pads: slice g holds
+    glyphs g·Gl to (g+1)·Gl of the padded bank (focr_tpu/parallel/
+    decode.py:53-55). What carries focr_tpu's bank to the port's slots."""
+    tmpl = _pad_glyph_axis(templates, n_g)
+    tsq_p = _pad_glyph_axis(tsq[..., None], n_g)[..., 0]
+    Gl = tmpl.shape[1] // n_g
+    return [(np.ascontiguousarray(tmpl[:, g * Gl : (g + 1) * Gl]),
+             np.ascontiguousarray(tsq_p[:, g * Gl : (g + 1) * Gl])) for g in range(n_g)]
+
+
+def make_sharded_grid_fn(bank: GridBank, ys: tuple[int, ...], x0: int, mesh: Mesh):
+    """[B, H, W] u8 pages -> (ids [B, R, C] i32, white [B, R] bool), each a
+    mesh.Sharded over the pages axis (mesh.fetch_global brings them back).
+
+    The single-slot equivalent is models/focr.py::StripForward on cropped
+    strips. Here the strips are cropped on the host once for the batch, each
+    page row's block goes up to every slot of the row, every slot scores its
+    glyph slice, and the row's first slot combines. With one glyph shard a
+    slot runs plain K4 and nothing is combined. B must be a multiple of the
+    pages-axis size (use mesh.pad_batch)."""
+    from focr_tpu_torch.models.focr import StripForward, crop_strips
+
+    n_p, n_g = mesh.shape[PAGES_AXIS], mesh.shape[GLYPHS_AXIS]
+    slices = shard_grid_bank(bank.templates, bank.tsq, n_g)
+    Gl = slices[0][0].shape[1]
+    fwd: dict[int, StripForward] = {}
+    for slot in mesh.local_slots:
+        tmpl, tsq = slices[slot.index % n_g]
+        with slot.context():  # the slice goes up on the slot's own stream
+            fwd[slot.index] = StripForward(
+                dataclasses.replace(bank, templates=tmpl, tsq=tsq), slot.device)
+
+    def fn(pages: np.ndarray):
+        B = pages.shape[0]
+        if B % n_p:
+            raise ValueError(f"a batch of {B} pages does not divide over {n_p} page rows")
+        strips = crop_strips(pages, ys, bank.crop_h, x0, bank.crop_w)
+        placed = {slot.index: t for slot, _, t in put_global(strips, mesh, PAGES_AXIS).shards}
+        rows = dict((s.index, idx) for s, idx in mesh.blocks(PAGES_AXIS, B))
+        ids_out, white_out = [], []
+        for row in mesh.grid:
+            head = row[0]
+            if head.rank != mesh.rank:
+                continue
+            parts = []
+            for slot in row:
+                f = fwd[slot.index]
+                with slot.context():
+                    if n_g == 1:
+                        parts.append(f(placed[slot.index]))
+                        continue
+                    parts.append(ssd_argmin_partial(
+                        placed[slot.index], f.templates, f.tsq, f.wx0, bfrag=f.bfrag))
+            if n_g == 1:
+                ids, white = parts[0]
+            else:
+                vals = gather_group(head, [(s, p[1]) for s, p in zip(row, parts)])
+                lids = gather_group(head, [(s, p[0]) for s, p in zip(row, parts)])
+                with head.context():
+                    ids = first_min_combine(vals, lids, Gl)  # the bank's glyph numbers
+                white = parts[0][2]  # no glyph enters it
+            ids_out.append((head, rows[head.index], ids))
+            white_out.append((head, rows[head.index], white))
+        R, C = len(ys), bank.n_cells
+        return (Sharded(mesh, (B, R, C), torch.int32, ids_out, PAGES_AXIS),
+                Sharded(mesh, (B, R), torch.bool, white_out, PAGES_AXIS))
+
+    return fn

@@ -7,9 +7,19 @@ measurement ran on.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
+import threading
+from collections import Counter
 
 import torch
+
+# (mesh slot's index, kernel wrapper's name) -> kernel launches made while
+# that slot was the thread's current one (parallel/mesh.py::Slot.context):
+# counted by count_launch, where a wrapper has launched, and nowhere else
+SLOT_LAUNCHES: Counter = Counter()
+_slot_lock = threading.Lock()
+_current = threading.local()
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -40,14 +50,49 @@ def card_label() -> str:
     return out.stdout.strip()
 
 
-def note_single_card(tool: str, mesh: str, device: torch.device) -> None:
-    """The CLIs' ``--mesh auto`` policy on this package: with one visible
-    card it does nothing, as focr_tpu's auto_mesh does on one device
-    (focr_tpu/parallel/mesh.py:51-58). With more than one card visible the
-    run still takes one card and says so in one stderr line: the multi-card
-    path is not part of this package yet."""
-    if mesh == "auto" and device.type == "cuda" and torch.cuda.device_count() > 1:
-        import sys
+@contextlib.contextmanager
+def launch_stream(t: torch.Tensor):
+    """The guard every kernel wrapper launches under: ``t``'s card is made
+    the current device for the block (the launchers in csrc/ act on the
+    current device: the launch itself, cudaFuncSetAttribute, the events a
+    wrapper records), and the raw handle of the current stream on that card
+    is yielded for the launcher's ``stream`` argument. With the slots of a
+    mesh on several cards the caller's current device is whichever it touched
+    last, so nothing may rely on it."""
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream()
+        if stream.device != t.device:
+            raise RuntimeError(f"the current stream is on {stream.device}, the tensors on {t.device}")
+        yield stream.cuda_stream
 
-        print(f"{tool}: {torch.cuda.device_count()} CUDA cards are visible; this run uses "
-              f"one ({device}), sharding over cards is not available yet", file=sys.stderr)
+
+@contextlib.contextmanager
+def slot_scope(index: int):
+    """Make mesh slot ``index`` this thread's current slot for the block."""
+    before = current_slot()
+    _current.slot = index
+    try:
+        yield
+    finally:
+        _current.slot = before
+
+
+def current_slot() -> int | None:
+    """The mesh slot this thread is issuing work for, or None outside one."""
+    return getattr(_current, "slot", None)
+
+
+def count_launch(launches: dict, kernel: str) -> None:
+    """Called by a kernel wrapper right after it has launched ``kernel``: one
+    more in the wrapper's own ``launches`` and, when the thread works for a
+    mesh slot, one more for that slot in SLOT_LAUNCHES."""
+    launches[kernel] += 1
+    slot = current_slot()
+    if slot is not None:
+        with _slot_lock:
+            SLOT_LAUNCHES[(slot, kernel)] += 1
+
+
+def reset_slot_launches() -> None:
+    with _slot_lock:
+        SLOT_LAUNCHES.clear()

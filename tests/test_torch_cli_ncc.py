@@ -161,6 +161,42 @@ def test_parser_takes_every_flag_of_focr_tpus():
     ours, theirs = options(torch_parser()), options(jax_parser())
     assert theirs <= ours
     assert ours - theirs == {"--device", "--needle-bank"}
+    # --mesh builds a mesh now; --device-kernel and --wire stay unused
+    unused = {a.option_strings[0] for a in torch_parser()._actions
+              if a.help and "unused" in a.help}
+    assert unused == {"--device-kernel", "--wire"}
+
+
+@pytest.mark.parametrize("extra,calls", [([], 1), (["--mesh", "auto", "--csv"], 1),
+                                         (["--mesh", "off"], 0), (["--engine", "native"], 0),
+                                         (["--rust"], 0)],
+                         ids=["default", "auto", "off", "native", "rust"])
+def test_mesh_flag_reaches_auto_mesh(pages, mono_font_path, capsys, monkeypatch, extra, calls):
+    """--mesh auto (the default) asks auto_mesh for a mesh on the device
+    engine's device and hands it, with the pages, to get_hits_many_sharded;
+    --mesh off and the host engines never ask."""
+    from focr_tpu_torch.models.ncc import NccMatcher as TNccMatcher
+    from focr_tpu_torch.parallel import mesh as mesh_mod
+
+    asked, sharded = [], []
+    mesh = mesh_mod.page_mesh(["cpu"] * 3)
+    monkeypatch.setattr(mesh_mod, "auto_mesh", lambda device: asked.append(str(device)) or mesh)
+    real = TNccMatcher.get_hits_many_sharded
+
+    def recording(self, pgs, m, **kw):
+        sharded.append((len(pgs), m))
+        return real(self, pgs, m, **kw)
+
+    monkeypatch.setattr(TNccMatcher, "get_hits_many_sharded", recording)
+    argv = ["-i", *pages, "-f", mono_font_path, "-t", "13", "-a", ALPHA, "--device", "cpu"]
+    others = [e for e in extra if e not in ("--mesh", "auto", "off")]
+    _, want, _ = _run(torch_main, [*argv, "--mesh", "off", *others], capsys)
+    asked.clear(), sharded.clear()
+    rc, out, _ = _run(torch_main, [*argv, *extra], capsys)
+    assert rc == 0 and out == want and out
+    assert asked == ["cpu"] * calls
+    # the two pages differ in shape: one bucket, one sharded call, each
+    assert sharded == [(1, mesh)] * (2 * calls)
 
 
 @pytest.mark.parametrize("extra", [[], ["--csv"], ["--engine", "native"], ["--rust"]],

@@ -1,5 +1,5 @@
-"""K1 (both tiers), K2 (count and emit), K4 (both instances) and K5 on a CUDA
-card against their plain PyTorch versions, exactly.
+"""K1 (both tiers), K2 (count and emit), K4 (both instances), K4p, K6 and K5
+on a CUDA card against their plain PyTorch versions, exactly.
 
 Marked ``cuda``: each test skips without a card. On a machine with one, run
 
@@ -208,11 +208,66 @@ def test_ssd_argmin_matches_plain_version(cuda, case):
     ssd_kernels.reset_launches()
     ids, white = ssd_kernels.ssd_argmin(*args)
     torch.cuda.synchronize()
-    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 1}
+    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 1, "ssd_argmin_partial": 0, "ssd_combine": 0}
     ids_r, white_r = ssd_kernels.ssd_argmin_reference(*args)
     assert torch.equal(ids, ids_r) and torch.equal(white, white_r)
     assert case == "strips-1" or not bool(white.all())  # its one strip is white
     assert case == "corpus" or bool(white[0, 0])
+
+
+@pytest.mark.parametrize("n_g", [2, 4, 8])
+@pytest.mark.parametrize("case", ["corpus", "noise", "dup-glyph", "narrow", "i64-dot", "ties",
+                                  "strips-17", "tiles-G9-w5", "tiles-G67-w9"])
+def test_partial_and_combine_match_plain_versions(cuda, case, n_g):
+    """K4p (both instances) on every glyph slice of the bank and K6 on the
+    gathered partials against their plain versions, bit for bit; the combined
+    ids are unsharded K4's (duplicated and padded glyphs tie across shards:
+    the lowest shard must win)."""
+    from focr_tpu_torch.parallel.decode import shard_grid_bank
+
+    strips, templates, tsq, wx0 = _ssd_inputs(case, seed=len(case))
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (strips, wx0)]
+    ssd_kernels.reset_launches()
+    vals, lids = [], []
+    slices = shard_grid_bank(templates, tsq, n_g)
+    Gl = slices[0][0].shape[1]
+    for tmpl, tq in slices:
+        args = (dev[0], torch.from_numpy(tmpl).to(cuda), torch.from_numpy(tq).to(cuda), dev[1])
+        ids, val, white = ssd_kernels.ssd_argmin_partial(*args)
+        ids_r, val_r, white_r = ssd_kernels.ssd_argmin_partial_reference(*args)
+        torch.cuda.synchronize()
+        assert val.dtype == torch.int64 and torch.equal(val, val_r)
+        assert torch.equal(ids, ids_r) and torch.equal(white, white_r)
+        vals.append(val), lids.append(ids)
+    vals, lids = torch.stack(vals), torch.stack(lids)
+    out = ssd_kernels.first_min_combine(vals, lids, Gl)
+    torch.cuda.synchronize()
+    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": n_g, "ssd_combine": 1}
+    assert torch.equal(out, ssd_kernels.first_min_combine_reference(vals, lids, Gl))
+    full, _ = ssd_kernels.ssd_argmin(dev[0], torch.from_numpy(templates).to(cuda),
+                                     torch.from_numpy(tsq).to(cuda), dev[1])
+    assert torch.equal(out, full)
+
+
+@pytest.mark.parametrize("n_g,n", [(1, 1), (2, 255), (4, 256), (8, 257), (3, 62400), (8, 1 << 20)])
+def test_first_min_combine_ties(cuda, n_g, n):
+    """K6 on few distinct values (most columns tie), on values past f64's
+    exact integers, with the minimum in the last shard, and all equal."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(-2, 3, (n_g, n)).astype(np.int64) * 2**40 + 2**61
+    vals[:, : n // 4] = 7
+    vals[-1, n // 4 : n // 2] = -(2**62)
+    ids = rng.integers(0, 1 << 20, (n_g, n)).astype(np.int32)
+    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(ids).to(cuda)
+    ssd_kernels.reset_launches()
+    Gl = 1 + n % 97  # glyphs a shard: the local ids become the bank's
+    out = ssd_kernels.first_min_combine(v, i, Gl)
+    torch.cuda.synchronize()
+    assert ssd_kernels.LAUNCHES["ssd_combine"] == 1
+    gids = ids + (np.arange(n_g, dtype=np.int32) * Gl)[:, None]
+    want = np.take_along_axis(gids, np.argmin(vals, axis=0)[None], axis=0)[0]
+    assert np.array_equal(out.cpu().numpy(), want)
+    assert torch.equal(out, ssd_kernels.first_min_combine_reference(v, i, Gl))
 
 
 PROP_FIXTURE = os.path.join(

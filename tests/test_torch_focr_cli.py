@@ -181,6 +181,32 @@ def test_parser_takes_every_flag_of_focr_tpus():
     ours, theirs = _options(torch_parser()), _options(jax_parser())
     assert theirs <= ours
     assert ours - theirs == {"--device", "--grid-bank"}
+    # --mesh and --glyph-shards build a mesh now: none is "accepted and unused"
+    for action in torch_parser()._actions:
+        if {"--mesh", "--glyph-shards"} & set(action.option_strings):
+            assert "accepted" not in action.help and "unused" not in action.help
+
+
+@pytest.mark.parametrize("extra,want", [([], ("cpu", 1)), (["--glyph-shards", "4"], ("cpu", 4)),
+                                        (["--mesh", "auto", "--glyph-shards", "2"], ("cpu", 2)),
+                                        (["--mesh", "off", "--glyph-shards", "2"], None)],
+                         ids=["default", "glyph-shards", "both", "off"])
+def test_mesh_flags_reach_auto_mesh(setup, capsys, monkeypatch, extra, want):
+    """--mesh auto (the default) calls auto_mesh with the device and
+    --glyph-shards; --mesh off never does."""
+    from focr_tpu_torch.parallel import mesh as mesh_mod
+
+    paths, flags, _ = setup
+    calls = []
+
+    def auto_mesh(device, glyph_shards=1):
+        calls.append((str(device), glyph_shards))
+        return None
+
+    monkeypatch.setattr(mesh_mod, "auto_mesh", auto_mesh)
+    rc, out, _ = _run(torch_main, ["-i", paths["a"], paths["c"], *flags, "--device", "cpu",
+                                   *extra], capsys)
+    assert rc == 0 and out and calls == ([want] if want else [])
 
 
 def _png(path):
@@ -347,14 +373,31 @@ def test_mesh_flags_are_accepted_and_do_nothing_on_one_device(setup, capsys, ext
 
 @pytest.mark.parametrize("cards,mesh,said", [(1, "auto", False), (4, "auto", True),
                                              (4, "off", False)])
-def test_more_cards_than_one_is_said_once(capsys, monkeypatch, cards, mesh, said):
-    """With several cards visible the run takes one and says so in one
-    stderr line (--mesh auto on a card); on the CPU it never speaks."""
-    from focr_tpu_torch.utils.device import note_single_card
+def test_more_cards_than_one_is_said_once(setup, capsys, monkeypatch, cards, mesh, said):
+    """With several cards visible --mesh auto builds the mesh over them (a
+    run used to take one card and say so on stderr; ``said`` is now whether a
+    mesh reaches the decoder), --mesh off and one card build none, and
+    nothing is said on stderr either way."""
+    from focr_tpu_torch.models import focr as focr_model
+    from focr_tpu_torch.parallel import mesh as mesh_mod
 
+    paths, flags, _ = setup
+    seen = []
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    note_single_card("focr", mesh, torch.device("cuda"))
-    err = capsys.readouterr().err
-    assert (err.count("\n") == 1 and f"{cards} CUDA cards" in err) if said else err == ""
-    note_single_card("focr", mesh, torch.device("cpu"))
-    assert capsys.readouterr().err == ""
+    monkeypatch.setattr(mesh_mod, "mesh_devices", lambda dev: [f"cpu:{i}" for i in range(cards)])
+    real = focr_model.decode_pages
+
+    def recording(*args, mesh=None, **kw):
+        seen.append(mesh)
+        return real(*args, mesh=mesh, **kw)
+
+    monkeypatch.setattr(focr_model, "decode_pages", recording)
+    argv = ["-i", paths["a"], paths["b"], *flags, "--device", "cpu"]
+    rc, out, err = _run(torch_main, [*argv, "--mesh", mesh, "--glyph-shards", "2"], capsys)
+    assert rc == 0 and out and err == ""
+    assert len(seen) == 1 and (seen[0] is not None) == said
+    if said:
+        assert seen[0].shape == {"pages": cards // 2, "glyphs": 2}
+        assert [str(s.device) for s in seen[0].slots] == [f"cpu:{i}" for i in range(cards)]
+    rc, want, _ = _run(torch_main, [*argv, "--mesh", "off"], capsys)
+    assert out == want

@@ -154,7 +154,8 @@ def test_ssd_argmin_reference_matches_strip_forward(case):
     ssd_kernels.reset_launches()
     ids2, white2 = ssd_kernels.ssd_argmin(*args)  # CPU tensors: the plain version
     assert torch.equal(ids2, ids) and torch.equal(white2, white)
-    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0}
+    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": 0,
+                                    "ssd_combine": 0}
 
 
 @pytest.mark.parametrize(

@@ -2,7 +2,7 @@
 CUDA card: the port's counterpart of bench.py, from the committed fixtures.
 
     python tools/torch_bench.py [--reps N] [--pages P] [--corpus focr|prop|ncc ...]
-                                [--device cpu]
+                                [--device cpu] [--mesh PxG]
     python tools/torch_bench.py --fresh [--corpus ...]
 
 For each corpus (focr, prop, ncc: tests/fixtures/torch_<corpus>_golden.npz,
@@ -16,12 +16,21 @@ line in bench.py's shape (bench.py:485-499, without ``vs_baseline``):
     {"metric": "<corpus>_pages_per_sec", "value": <median>, "unit": "pages/sec",
      "extra": {"spread": [p05, p95], "pages": P, "reps": N, "card": "<name>,
      <power limit>", "bank_load_ms": <median of 3 loads of what the run
-     loads>, "device": "cuda" | "cpu"}}
+     loads>, "device": "cuda" | "cpu", "mesh": "PxG" | "off", "slots": [...],
+     "physical_cards": n}}
 
 ``--pages P`` (a multiple of 16) repeats the fixture's pages, so that ncc runs
 P/8 waves and not two. A wrong stdout raises; nothing is caught. Without a
 card the tool fails unless ``--device cpu`` is given (the kernels' plain
 versions: for rehearsal, not a measurement of the port).
+
+``--mesh PxG`` runs the CLIs over a mesh of P page rows by G glyph shards
+(``--mesh auto`` with ``--glyph-shards G`` for focr and prop; ncc deals its
+pages over all P*G slots). The slots are the list in FOCR_TORCH_MESH_DEVICES
+when it is set, else the visible cards taken in turn until there are P*G (on
+one card: ``cuda:0`` P*G times, each slot with its own stream), and the JSON
+line names them and the number of physical cards under them. Without the
+option the CLIs run with ``--mesh off``: one card, today's path.
 
 ``--fresh`` explains a fresh process's start-up instead: for each corpus it
 times a ``python -m focr_tpu_torch.cli.<tool>`` run of the 16 pages, and the
@@ -57,8 +66,14 @@ def fixture(corpus: str) -> str:
     return os.path.join(FIXTURES, f"torch_{corpus}_golden.npz")
 
 
-def cli_argv(corpus: str, paths: list[str], device: str) -> list[str]:
+def cli_argv(corpus: str, paths: list[str], device: str, glyph_shards: int = 0) -> list[str]:
+    """``glyph_shards``: 0 runs --mesh off; G > 0 runs --mesh auto, with
+    --glyph-shards G where the CLI has the flag."""
     dev = ["--device", "cpu"] if device == "cpu" else []
+    if glyph_shards == 0:
+        dev += ["--mesh", "off"]
+    elif corpus != "ncc":
+        dev += ["--mesh", "auto", "--glyph-shards", str(glyph_shards)]
     if corpus == "ncc":
         return ["-i", *paths, "-f", FONT, "-t", "13", "--x-bits", "2", "--needle-bank",
                 fixture(corpus), *dev]
@@ -154,15 +169,42 @@ def bank_load_ms(corpus: str) -> float:
     return sorted(ts)[1]
 
 
-def bench(corpus: str, reps: int, n_pages: int, device: str, card: str) -> dict:
+def mesh_slots(shape: str, device: str) -> tuple[int, list[str]]:
+    """(glyph shards, slot names) for ``--mesh PxG``: the environment's list
+    if it is set (it must name P*G slots), else the visible cards in turn."""
+    import torch
+
+    from focr_tpu_torch.parallel.mesh import MESH_DEVICES_ENV
+
+    p, g = (int(v) for v in shape.lower().split("x"))
+    env = os.environ.get(MESH_DEVICES_ENV)
+    if env:
+        slots = [s.strip() for s in env.split(",") if s.strip()]
+        if len(slots) != p * g:
+            raise SystemExit(f"{MESH_DEVICES_ENV} names {len(slots)} slots, --mesh {shape} "
+                             f"needs {p * g}")
+    elif device == "cpu":
+        slots = ["cpu"] * (p * g)
+    else:
+        slots = [f"cuda:{i % torch.cuda.device_count()}" for i in range(p * g)]
+    return g, slots
+
+
+def bench(corpus: str, reps: int, n_pages: int, device: str, card: str,
+          mesh: str | None = None) -> dict:
     import numpy as np
 
+    from focr_tpu_torch.parallel.mesh import MESH_DEVICES_ENV
+
     main = cli_main(corpus)
+    glyph_shards, slots = mesh_slots(mesh, device) if mesh else (0, [])
+    if mesh:  # the CLI's auto_mesh reads its slots from the environment
+        os.environ[MESH_DEVICES_ENV] = ",".join(slots)
     with corpus_pages(corpus) as (paths, lines, truths):
-        _, warm = run_cli(main, cli_argv(corpus, paths, device))
+        _, warm = run_cli(main, cli_argv(corpus, paths, device, glyph_shards))
         check_warmup(corpus, warm, lines, truths)
         want = warm * (n_pages // FIXTURE_PAGES)
-        argv = cli_argv(corpus, paths * (n_pages // FIXTURE_PAGES), device)
+        argv = cli_argv(corpus, paths * (n_pages // FIXTURE_PAGES), device, glyph_shards)
         rates = []
         for _ in range(reps):
             wall, out = run_cli(main, argv)
@@ -172,7 +214,9 @@ def bench(corpus: str, reps: int, n_pages: int, device: str, card: str) -> dict:
     p05, med, p95 = np.percentile(rates, [5, 50, 95])
     return {"metric": f"{corpus}_pages_per_sec", "value": float(med), "unit": "pages/sec",
             "extra": {"spread": [float(p05), float(p95)], "pages": n_pages, "reps": reps,
-                      "card": card, "bank_load_ms": bank_load_ms(corpus), "device": device}}
+                      "card": card, "bank_load_ms": bank_load_ms(corpus), "device": device,
+                      "mesh": mesh or "off", "slots": slots,
+                      "physical_cards": len(set(slots)) if mesh else 1}}
 
 
 _STAGES = """
@@ -241,6 +285,8 @@ def main() -> int:
     ap.add_argument("--corpus", action="append", choices=CORPORA, default=None)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--fresh", action="store_true")
+    ap.add_argument("--mesh", default=None, metavar="PxG",
+                    help="run over a mesh of P page rows by G glyph shards (default: --mesh off)")
     args = ap.parse_args()
     if args.pages <= 0 or args.pages % FIXTURE_PAGES:
         raise SystemExit(f"--pages must be a positive multiple of {FIXTURE_PAGES}")
@@ -259,7 +305,7 @@ def main() -> int:
         card = "cpu (the kernels' plain versions: not a measurement of the port)"
     for corpus in args.corpus or CORPORA:
         line = fresh(corpus, card) if args.fresh else bench(
-            corpus, args.reps, args.pages, args.device, card)
+            corpus, args.reps, args.pages, args.device, card, args.mesh)
         print(json.dumps(line), flush=True)
     return 0
 
