@@ -34,13 +34,13 @@ Phases, each of which raises on failure:
                conv2d in TF32 on the same wave and needles (a yardstick of the
                correlation alone; the port never calls it)
   4. golden  — NccMatcher on the card decodes the fixture's two golden pages
-               to focr_tpu's lines, through both kernels
+               to focr_tpu's lines, through K1, K2 and K3
   5. cli     — the ncc CLI on 16 pages: once in-process, with the launch
                counts, the host library's call counts and the device stage's
                host waits reset just before and read just after (the counted
-               main path: K1, K2's two kernels, the native replay and the
-               native post-processing scan; 3 waits a wave of two size
-               groups), once as
+               main path: K1, K2's two kernels and K3 — as many K3 launches as
+               K1's, no host replay call — and the native post-processing
+               scan; 3 waits a wave of two size groups), once as
                `python -m focr_tpu_torch.cli.ncc` (exit 0, same stdout); every
                page's lines are checked against its text
   6. focr-kernels — K4 (ssd_argmin) against its plain PyTorch version on the
@@ -80,7 +80,8 @@ Phases, each of which raises on failure:
                look-alike glyphs on every engine, so the text is not compared)
  12. host-native — the ncc host library (host C++, not a device kernel): its
                build (compiler, seconds, OpenMP threads); on phase 3's wave
-               the native replay against the NumPy plain replay, bit for bit
+               (K2's positions) the native replay, K3's yardstick, against the
+               NumPy plain replay, bit for bit
                (coordinates, f32 similarity bytes, counts, warn flags), and
                the native post-processing scan against its NumPy version
                (same winners), each timed per page; the matcher's 4-thread
@@ -93,7 +94,7 @@ Phases, each of which raises on failure:
 
  13. pipeline — the ncc CLI in-process on the 16 pages four times over (64
                pages, eight waves, 296 needles): stdout equal to the 16 pages'
-               four times; 3 host waits a wave; K1 and K2 launched twice a
+               four times; 3 host waits a wave; K1, K2 and K3 launched twice a
                wave each; a torch.profiler trace of one such run, with one K1
                launch on the caller's stream as a marker in front, must show
                the pipeline's K1 launches on another stream, and the first K1
@@ -143,21 +144,32 @@ Phases, each of which raises on failure:
  19. multiproc — tools/torch_multiproc_smoke.py: two processes over gloo,
                four slots each on the card, the canonical corpora; both must
                print OK
+ 20. replay  — K3 (ncc_replay) on phase 3's wave, from K2's positions on the
+               card: against its plain PyTorch version on the card and
+               against the host library's replay of each page (x, y, the f32
+               similarities' bits, counts, WARN flags; tolerance 0), with
+               MAX_MATCHES and with a cap of 5 (it must raise WARN flags);
+               then K3 timed with CUDA events (the call) and from a
+               torch.profiler trace (device time), beside its plain version
+               and the host replay, each per page
 
 Then a JSON line with the conv2d yardstick, one JSON line of the kernels
 (with the host tier's numbers under "host_native" and phases 13-14's under
 "pipeline" and "banks"), the card line, and last
 {"ok": true, "device": {...}}. Each kernel's entry carries its launches on
-the counted main path (phases 5, 8, 11) and per page, its max|err| against
+the counted main path (phases 5, 8, 11; K3 phase 5) and per page, its
+max|err| against
 its plain version, its ms and plain_ms per page, bound_ms per page — the
-larger of its operations (2 per multiply-add, over the ink crop for K1 and
-the steps taken for K5) over the H100's int8 tensor-core peak and its bytes
+larger of its operations (2 per multiply-add, over the ink crop for K1, the
+steps taken for K5 and the candidates' windows for K3) over the H100's int8
+tensor-core peak and its bytes
 (inputs read once, outputs written once) over the memory rate — with
 bound_by, and library_ms (null: no single PyTorch call computes any of these
 functions). K1's entry carries its wide instance's numbers as wide_*; K2's
 (whose bytes are the mask rows that hold candidates, the row counts and its
 outputs) its count kernel's launches, each of its two kernels' ms alone, and
-the device stage's host waits a wave; K4's the instance the main path takes.
+the device stage's host waits a wave; K4's the instance the main path takes;
+K3's its device time and the host replay's ms per page (host_replay_ms).
 K4p's and K6's launches are those of phase 18's focr run at 2 glyph shards on
 four slots; their ms are per page of a slot's block, with the numbers at 4
 glyph shards under "by_glyph_shards". The line also carries phase 18's
@@ -719,6 +731,40 @@ def page_formats_phase(page) -> dict:
             timings["gray8-filters.png"], "read_ms_png_unfiltered": timings["saved.png"]}
 
 
+def canonical_wave(matcher, pages) -> list[tuple]:
+    """Phase 3's wave (the first WAVE pages) as the matcher's dispatch stage
+    hands it to K3, made with K1 and K2 on the card: per swept size group
+    (group, device group, inverted pages [B, H, W] on the host, crop, the
+    cropped pages on the card, K2's positions, offsets and counts there)."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.ops import ncc_kernels as K
+
+    inv = (255 - np.asarray(pages[: ncc_model.WAVE]).astype(np.int16)).astype(np.uint8)
+    y0, x0, Hc, Wc = crop = ncc_model._ink_crop(inv, *inv.shape[1:], matcher.groups)
+    inv_dev = torch.from_numpy(np.ascontiguousarray(inv[:, y0 : y0 + Hc, x0 : x0 + Wc])).to(
+        matcher.device)
+    out = []
+    for grp, dg in zip(matcher.groups, matcher.dev_groups):
+        mask, rcnt = K.ncc_sweep(inv_dev, dg.bank, dg.s_n, dg.s2_n, matcher.threshold,
+                                 terms=dg.terms, afrag=dg.afrag)
+        pos, off, hcnt, _ = K.compact_hits(mask, rcnt)
+        out.append((grp, dg, inv, crop, inv_dev, pos, off, hcnt))
+    return out
+
+
+def host_replay_inputs(grp, inv, crop, pos, off, hcnt, thr: float, max_matches: int) -> list:
+    """The host replay's arguments (models/ncc.py::replay_inputs) for each
+    page of one canonical_wave group, with ``max_matches``."""
+    from focr_tpu_torch.models import ncc as ncc_model
+
+    pos, off, hcnt = pos.cpu().numpy(), off.cpu().numpy(), hcnt.cpu().numpy()
+    return [(*ncc_model.replay_inputs(grp, (pos[off[b] : off[b + 1]], hcnt[b]), inv[b], crop,
+                                      thr)[:-1], max_matches) for b in range(len(inv))]
+
+
 def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
     """Phase 12: the ncc host library (csrc/ncc_host.cpp, built in phase 2)
     on the card's host. Returns its numbers for the JSON line."""
@@ -728,6 +774,7 @@ def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
     from focr_tpu_torch.io.images import save_gray
     from focr_tpu_torch.models import ncc as ncc_model
     from focr_tpu_torch.models import post as post_model
+    from focr_tpu_torch.models.types import MAX_MATCHES
     from focr_tpu_torch.native import ncc_cpu
 
     def median_s(fn, reps: int) -> float:
@@ -747,12 +794,14 @@ def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
 
     log(f"[host-native] host library: {host_build['compiler']}, built and loaded in "
         f"{host_build['host_build_s']:.1f} s; OpenMP threads {host_build['omp_threads']}")
-    # the replay on phase 3's wave: native against the NumPy plain version
+    # the host replay (K3's yardstick) on phase 3's wave: native against the
+    # NumPy plain version
+    thr = float(np.float32(matcher.threshold))
+    groups = [args for grp, _, inv, crop, _, pos, off, hcnt in canonical_wave(matcher, pages)
+              for args in host_replay_inputs(grp, inv, crop, pos, off, hcnt, thr,
+                                             MAX_MATCHES)]
     wave = matcher._sweep_wave(list(pages[: ncc_model.WAVE]))
     B = len(wave)
-    thr = np.float64(np.float32(matcher.threshold))
-    groups = [ncc_model.replay_inputs(grp, data, inv, crop, thr)
-              for _, inv, plan, _, crop in wave for grp, kind, data in plan if kind == "sweep"]
     n_cand = n_hits = 0
     for args in groups:
         a = valid(ncc_cpu.replay_group(*args), args[2])
@@ -764,9 +813,9 @@ def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
     replay_ms = median_s(lambda: [ncc_cpu.replay_group(*g) for g in groups], 7) * 1e3 / B
     replay_plain_ms = median_s(
         lambda: [ncc_model.replay_group_reference(*g) for g in groups], 3) * 1e3 / B
-    log(f"[host-native] replay on the {B}-page wave: {n_cand} candidates, {n_hits} hits, "
-        f"native identical to plain (coordinates, f32 sim bits, counts, warn); ms/page "
-        f"native {replay_ms:.3f} (plain {replay_plain_ms:.3f})")
+    log(f"[host-native] host replay (off the main path: K3's yardstick) on the {B}-page wave: "
+        f"{n_cand} candidates, {n_hits} hits, native identical to plain (coordinates, f32 sim "
+        f"bits, counts, warn); ms/page native {replay_ms:.3f} (plain {replay_plain_ms:.3f})")
 
     # post-processing: the native sort + scan against the NumPy argsort + scan
     structs = [matcher._collect_page(d, False, False, None, True) for d in wave]
@@ -806,7 +855,8 @@ def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
         if got != want:
             raise AssertionError(f"{name} collection changed the lines")
     pool_s, serial_s = min(times["pool"]), min(times["serial"])
-    log(f"[host-native] {len(plist)} pages, matcher + post: 4-thread collect pool "
+    log(f"[host-native] {len(plist)} pages, matcher + post: {ncc_model.COLLECT_THREADS}-thread "
+        f"collect pool "
         f"{[round(t, 4) for t in times['pool']]} s, serial {[round(t, 4) for t in times['serial']]}"
         f" s (best {len(plist) / pool_s:.1f} against {len(plist) / serial_s:.1f} pages/s)")
 
@@ -869,6 +919,7 @@ def pipeline_phase(matcher, pages, want16: str, card: str) -> dict:
     from focr_tpu_torch.cli.ncc import main as ncc_main
     from focr_tpu_torch.models import ncc as ncc_model
     from focr_tpu_torch.ops import ncc_kernels as K
+    from focr_tpu_torch.ops import replay_kernels as R
 
     reps = 4
     n = reps * len(pages)
@@ -879,15 +930,16 @@ def pipeline_phase(matcher, pages, want16: str, card: str) -> dict:
                 "--needle-bank", FIXTURE]
         # the counted run
         K.reset_launches()
+        R.reset_launches()
         ncc_model.reset_host_waits()
         out, _ = _run_cli(ncc_main, argv)
-        launches, waits = dict(K.LAUNCHES), ncc_model.HOST_WAITS
+        launches, waits = {**K.LAUNCHES, **R.LAUNCHES}, ncc_model.HOST_WAITS
         if out != want16 * reps:
             raise AssertionError("pipeline: the 64 pages' stdout is not the 16 pages' four times")
         groups = len(matcher.groups)
         if waits != (groups + 1) * n_waves or launches != {
                 "ncc_sweep": groups * n_waves, "compact_count": groups * n_waves,
-                "compact_hits": groups * n_waves}:
+                "compact_hits": groups * n_waves, "ncc_replay": groups * n_waves}:
             raise AssertionError(f"pipeline: {n_waves} waves waited {waits} times and launched "
                                  f"{launches}")
         # the traced run, a K1 launch on the caller's stream in front as a marker
@@ -1293,6 +1345,7 @@ def mesh_paths_phase(cases: dict, ncc_paths: list[str], want16: str, card: str) 
     from focr_tpu_torch.models import ncc as ncc_model
     from focr_tpu_torch.ops import ncc_kernels as K
     from focr_tpu_torch.ops import prop_kernels as P
+    from focr_tpu_torch.ops import replay_kernels as R
     from focr_tpu_torch.ops import ssd_kernels as S
     from focr_tpu_torch.parallel import mesh as M
     from focr_tpu_torch.utils.device import SLOT_LAUNCHES, reset_slot_launches
@@ -1304,9 +1357,9 @@ def mesh_paths_phase(cases: dict, ncc_paths: list[str], want16: str, card: str) 
     # (name, main, argv, stdout, pages, the wrappers whose LAUNCHES the slots' counts must equal)
     configs = [
         (f"focr --glyph-shards {g}", focr_main, [*cases["focr"][0], "--glyph-shards", str(g)],
-         cases["focr"][1], 16, S) for g in (1, 2, 4)
-    ] + [("prop", focr_main, cases["prop"][0], cases["prop"][1], 16, P),
-         (f"ncc --pages {n_ncc}", ncc_main, ncc_argv, want16 * reps, n_ncc, K)]
+         cases["focr"][1], 16, (S,)) for g in (1, 2, 4)
+    ] + [("prop", focr_main, cases["prop"][0], cases["prop"][1], 16, (P,)),
+         (f"ncc --pages {n_ncc}", ncc_main, ncc_argv, want16 * reps, n_ncc, (K, R))]
     slot_lists = [["cuda:0"] * 4]
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
@@ -1328,10 +1381,12 @@ def mesh_paths_phase(cases: dict, ncc_paths: list[str], want16: str, card: str) 
                     continue
                 # the counted run, then two more: every stdout is focr_tpu's
                 for k in range(3):
-                    wrappers.reset_launches()
+                    for w in wrappers:
+                        w.reset_launches()
                     reset_slot_launches()
                     out, _ = _run_cli(main, argv)
-                    launches, by_slot = dict(wrappers.LAUNCHES), dict(SLOT_LAUNCHES)
+                    launches = {kn: v for w in wrappers for kn, v in w.LAUNCHES.items()}
+                    by_slot = dict(SLOT_LAUNCHES)
                     if out != want:
                         raise AssertionError(f"mesh {name} on {where}, run {k}: stdout differs")
                     for kernel in launches:  # every launch was made for a slot
@@ -1392,6 +1447,108 @@ def multiproc_phase() -> None:
     log(f"[multiproc] two processes over gloo, {time.perf_counter() - t0:.1f} s: {oks}")
 
 
+def replay_phase(matcher, pages, launches: dict, n_pages: int, card: str) -> dict:
+    """Phase 20: K3 on phase 3's wave against its plain version and the host
+    library's replay. ``launches``: the counted CLI run's (phase 5) K1 and
+    K3 launches on ``n_pages`` pages. Returns K3's kernels entry."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.models.types import MAX_MATCHES
+    from focr_tpu_torch.native import ncc_cpu
+    from focr_tpu_torch.ops import replay_kernels as R
+
+    def host_hits(arg_list):
+        """The host replays of a group's pages, in K3's replay_hits form."""
+        parts, counts, warns = [], [], []
+        for args in arg_list:
+            x, y, sim, c, w = ncc_cpu.replay_group(*args)
+            idx = np.concatenate([np.arange(a, a + k) for a, k in zip(args[2], c)]
+                                 or [np.zeros(0, np.int64)]).astype(np.int64)
+            parts.append((x[idx], y[idx], sim[idx]))
+            counts.append(c)
+            warns.append(w)
+        return (*(np.concatenate([p[i] for p in parts]) for i in range(3)), np.stack(counts),
+                np.stack(warns))
+
+    def max_err(a, b) -> int:
+        """Largest |difference| over x, y, the f32 sims' bits, counts, warn."""
+        e = 0
+        for u, v in zip(a, b, strict=True):
+            u, v = (np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in (u, v))
+            if u.shape != v.shape:
+                raise AssertionError(f"K3: shapes {u.shape} and {v.shape} differ")
+            if u.dtype == np.float32:
+                u, v = u.view(np.int32), v.view(np.int32)
+            if u.size:
+                e = max(e, int(np.abs(u.astype(np.int64) - v.astype(np.int64)).max()))
+        return e
+
+    thr = float(np.float32(matcher.threshold))
+    cw = canonical_wave(matcher, pages)
+    B = len(cw[0][2])
+    err = n_cand = n_hits = n_capped = 0
+    ops = moved = 0
+    timed = []  # (K3's arguments, the host replay's) of each group
+    for grp, dg, inv, crop, inv_dev, pos, off, hcnt in cw:
+        for mm in (MAX_MATCHES, 5):
+            kargs = (inv_dev, pos, off, hcnt, dg.bank, dg.s_n, dg.s2_n, thr, crop[0], crop[1], mm)
+            buf = R.ncc_replay(*kargs)
+            got = R.replay_hits(buf, off, hcnt)
+            plain = R.replay_hits(R.ncc_replay_reference(*kargs), off, hcnt)
+            torch.cuda.synchronize()
+            hargs = host_replay_inputs(grp, inv, crop, pos, off, hcnt, thr, mm)
+            e_plain, e_host = max_err(got, plain), max_err(got, host_hits(hargs))
+            kept, warned = int(got[3].sum()), int(got[4].sum())
+            log(f"[replay] group {grp.nw}x{grp.nh}, max_matches {mm}: {len(pos)} candidates, "
+                f"{kept} hits, {warned} WARN flags; K3 vs plain max|err| {e_plain}, vs the host "
+                f"library {e_host}")
+            if e_plain or e_host:
+                raise AssertionError(f"K3 mismatch in group {grp.nw}x{grp.nh}, max_matches {mm}: "
+                                     f"plain {e_plain}, host {e_host}")
+            err = max(err, e_plain, e_host)
+            if mm != MAX_MATCHES:
+                n_capped += warned
+                continue
+            n_cand += len(pos)
+            n_hits += kept
+            timed.append((kargs, hargs))
+            # the correlation's multiply-adds of every candidate's window; the
+            # bytes: positions, crop, bank and counts in once, the hits out
+            T, nh, nw = dg.bank.shape
+            ops += 2 * len(pos) * nh * nw
+            moved += (nbytes(pos, inv_dev, dg.bank, dg.s_n, dg.s2_n, off, hcnt)
+                      + 12 * kept + 5 * B * T)
+    if not n_capped:
+        raise AssertionError("K3: the cap of 5 raised no WARN flag")
+    ms = sum(cuda_ms(lambda: R.ncc_replay(*ka), 20) for ka, _ in timed) / B
+    dev_ms = sum(device_ms(lambda: R.ncc_replay(*ka), 20, "focr_ncc_replay")
+                 for ka, _ in timed) / B
+    plain_ms = sum(cuda_ms(lambda: R.ncc_replay_reference(*ka), 3) for ka, _ in timed) / B
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _, ha in timed:
+            for args in ha:
+                ncc_cpu.replay_group(*args)
+        host.append((time.perf_counter() - t0) * 1e3 / B)
+    host_ms = sorted(host)[len(host) // 2]
+    bound_ms, bound_by = bound(ops / B, moved / B)
+    n3, n1 = launches["ncc_replay"], launches["ncc_sweep"]
+    log(f"[replay] {B}-page wave: {n_cand / B:.0f} candidates and {n_hits / B:.0f} hits a page, "
+        f"K3 identical to its plain version and to the host library with MAX_MATCHES and with a "
+        f"cap of 5 ({n_capped} WARN flags); ms/page K3 {ms:.5f} as the call is timed, "
+        f"{dev_ms:.5f} of device time (plain {plain_ms:.4f}, host library replay {host_ms:.4f}, "
+        f"bound {bound_ms:.6f} by {bound_by}); launches on the counted CLI run {n3} (K1 {n1}, "
+        f"{n3 / n_pages:g} a page); card {card}")
+    return {"name": "ncc_replay", "route": "cuda", "source": "focr_tpu_torch/csrc/ncc_replay.cu",
+            "replaces": "focr_tpu/models/ncc.py:1422", "launches": n3,
+            "launches_per_page": n3 / n_pages, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "host_replay_ms": host_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "candidates_per_page": n_cand / B,
+            "hits_per_page": n_hits / B}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1443,6 +1600,7 @@ def main() -> int:
     from focr_tpu_torch.models.types import NCC_DEFAULT_ALPHABET, RenderOptions
     from focr_tpu_torch.native import ncc_cpu
     from focr_tpu_torch.ops import ncc_kernels as K
+    from focr_tpu_torch.ops import replay_kernels as R
 
     dev = torch.device("cuda")
     with np.load(FIXTURE, allow_pickle=False) as z:
@@ -1537,11 +1695,12 @@ def main() -> int:
         device=dev, needles=needles,
     )
     K.reset_launches()
+    R.reset_launches()
     got = matcher.get_hits_many(
         list(pages[: len(golden)]), struct=True,
         post=lambda hs: process_hits_text(hs, 0.95, 5),
     )
-    counts = dict(K.LAUNCHES)
+    counts = {**K.LAUNCHES, **R.LAUNCHES}
     if got != golden:
         raise AssertionError("golden pages: the card's lines differ from focr_tpu's")
     if not all(counts.values()):
@@ -1580,16 +1739,20 @@ def main() -> int:
 
         buf = io.StringIO()
         K.reset_launches()
+        R.reset_launches()
         ncc_cpu.reset_native_calls()
         ncc_model.reset_host_waits()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = ncc_main(argv)
         wall = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
+        launches = {**K.LAUNCHES, **R.LAUNCHES}
         waits = ncc_model.HOST_WAITS
         native_calls = {k: ncc_cpu.NATIVE_CALLS[k] for k in ("replay_group", "post_sort_winners")}
-        if rc != 0 or not all(launches.values()) or not all(native_calls.values()):
+        # K3 replays every group K1 swept; the host replay is off the path
+        if (rc != 0 or not all(launches.values()) or native_calls["replay_group"]
+                or not native_calls["post_sort_winners"]
+                or launches["ncc_replay"] != launches["ncc_sweep"]):
             raise AssertionError(f"in-process CLI: rc {rc}, launches {launches}, host library "
                                  f"calls {native_calls}")
         # a canonical wave: two size groups, one wait for each group's counts
@@ -1679,6 +1842,8 @@ def main() -> int:
         kernels += [k4p, k6]
     # 19. two processes over gloo
     multiproc_phase()
+    # 20. K3 against its plain version and the host replay
+    kernels.insert(2, replay_phase(matcher, pages, launches, len(pages), card))
     if no_overlays:
         print(json.dumps({"overlays": no_overlays}), flush=True)
     print(json.dumps({"yardstick": "the correlation alone, not a library call of K1: "

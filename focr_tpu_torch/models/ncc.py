@@ -5,14 +5,15 @@ Counterpart of focr_tpu/models/ncc.py. Per wave of same-shape pages:
   dispatch (_dispatch_wave): invert -> ink-bbox crop (_ink_crop) -> upload
   -> per needle-size group: K1 ncc_sweep (candidate bitmask + row counts) ->
   K2's count kernel -> one wait for the group's counts -> K2's emit kernel
-  (positions in scan order, sized by the exact count) -> every group's
-  positions copied to the host without blocking, one event recorded
-  fetch (_fetch_wave): the wait on that event, the positions cut by page
-  collect (_collect_page), per page on the collect pool: crop -> full-page
-  remap, exact f64 replay in the C++ host library (native/ncc_cpu.py::
-  replay_group, which releases the GIL), MAX_MATCHES scan cap
-  (ncc.cpp:222-229) -> hits in reference iteration order (offsets outer,
-  letters inner — ncc.rs:587-655) -> models/post.py.
+  (positions in scan order, sized by the exact count) -> K3 ncc_replay (the
+  exact f64 replay of those positions where they sit, with the MAX_MATCHES
+  scan cap, ncc.cpp:222-229: full-page x, y, f32 sim, counts, WARN flags)
+  -> every group's hits copied to the host without blocking, one event
+  recorded
+  fetch (_fetch_wave): the wait on that event, the hits cut by page
+  collect (_collect_page), per page on the collect pool: each needle's hits
+  in reference iteration order (offsets outer, letters inner —
+  ncc.rs:587-655), the WARN lines -> models/post.py.
 
 get_hits_many runs the three stages as focr_tpu does (models/ncc.py:549-613):
 a dispatch thread, a fetch thread and the collect pool, with PIPELINE_DEPTH
@@ -25,13 +26,16 @@ focr_ncc_fetch_wave, focr_ncc_collect_wave; --profile). Every device
 tensor of a wave is allocated, used and freed on that one stream, so the
 caching allocator never hands a block to another stream while it is in use.
 
-The device stage is a candidate FILTER: an ε-superset of the reference's
-accept set; the host replay decides every hit exactly, so the output is
-bit-identical to the oracle (oracle/ncc_oracle.py) and to focr_tpu. The NumPy
-replay (replay_group_reference) is kept as the plain version the tests and
-chip_smoke.py hold the native one against. focr_tpu's transport-era machinery
-(candidate caps and redo ladders, wire codecs, adaptive wave and depth sizing)
-has nothing to do on a local card and is not carried over: the depth is fixed.
+The sweep is a candidate FILTER: an ε-superset of the reference's accept
+set; K3's exact f64 replay decides every hit, so the output is bit-identical
+to the oracle (oracle/ncc_oracle.py) and to focr_tpu, whose replay runs on
+the host (a TPU has no f64 unit). The host library's replay (native/
+ncc_cpu.py::replay_group) and the NumPy one (replay_group_reference) are no
+longer on the path: they are the yardsticks the tests and chip_smoke.py hold
+K3 against (replay_inputs gives them K2's positions of one page).
+focr_tpu's transport-era machinery (candidate caps and redo ladders, wire
+codecs, adaptive wave and depth sizing) has nothing to do on a local card and
+is not carried over: the depth is fixed.
 
 On a mesh (parallel/mesh.py; get_hits_many_sharded) the same three stages
 run with waves of WAVE pages for every slot: the dispatch thread deals a wave
@@ -70,6 +74,7 @@ from focr_tpu_torch.ops.ncc_kernels import (
     sweep_terms,
     to_host,
 )
+from focr_tpu_torch.ops.replay_kernels import ncc_replay, split_replay
 from focr_tpu_torch.parallel import mesh as mesh_mod
 from focr_tpu_torch.utils.device import resolve_device, slot_scope
 
@@ -81,10 +86,10 @@ WAVE = 8  # pages per device wave
 # collect stage bounds the run; 2 stands as the least depth that keeps a wave
 # ready whenever a collection ends.
 PIPELINE_DEPTH = 2
-# pages of a wave collected at once (focr_tpu/models/ncc.py:552), each replay
-# call with a team of native/ncc_cpu.py::REPLAY_TEAM OpenMP threads: the two
-# are sized together, 4 x 2 for 8 cores (4 threads with teams of every core
-# read like serial collection, or worse)
+# pages of a wave collected at once (focr_tpu/models/ncc.py:552). A page's
+# collection reads K3's hits and assembles them in reference order, and the
+# caller's post-processing runs in the same task; both hold the GIL but for
+# the native post scan, so more threads buy little (PERF.md §5, 2 against 4)
 COLLECT_THREADS = 4
 HOST_WAITS = 0  # times the device stage waited on the card (dispatch + fetch)
 _waits_lock = threading.Lock()  # the dispatch and fetch threads both count
@@ -133,10 +138,10 @@ class _Dispatched:
     """A wave between _dispatch_wave and _fetch_wave."""
 
     per_page: list  # (page, inverted page, plan, start time, crop) per page
-    swept: list[tuple]  # (plans, slot, grp, off, hcnt, lo, hi) of each swept group
-    pos: torch.Tensor | None  # int32, on the host: group g's positions are pos[lo:hi]
+    swept: list[tuple]  # (plans, slot, grp, off, hcnt, total) of each swept group
+    hits: list[torch.Tensor]  # K3's output of each swept group, on the host (split_replay)
     event: "torch.cuda.Event | None"  # a card: recorded behind the wave's last copy
-    held: list[torch.Tensor]  # pinned buffers (pos lies in one) to give back after the event
+    held: list[torch.Tensor]  # pinned buffers (hits lie in one) to give back after the event
     pool: "_PinnedPool | None"  # where they go back to: the pool of the slot that swept
 
 
@@ -349,9 +354,11 @@ def exact_similarities(
 
 
 def replay_inputs(grp: _Group, data: tuple, inv: np.ndarray, crop: tuple, thr_f64) -> tuple:
-    """The arguments of replay_group (and of replay_group_reference) for one
-    swept size group of one page: the crop-local positions remapped to the
-    full page, whose row length is W1 = word_stride(W, nw)·32
+    """The arguments of the host replays, native/ncc_cpu.py::replay_group
+    and replay_group_reference (K3's yardsticks, off the main path), for one
+    swept size group of one page from ``data`` = (K2's crop-local positions
+    of the page, its per-needle counts): the positions remapped to the full
+    page, whose row length is W1 = word_stride(W, nw)·32
     (focr_tpu/models/ncc.py:1390-1408), and each needle's candidate range
     from the exact per-needle counts."""
     H, W = inv.shape
@@ -374,7 +381,8 @@ def replay_group_reference(
     """The plain NumPy version of native/ncc_cpu.py::replay_group, with its
     arguments and return value: window stats gathered from i32 page planes,
     exact_similarities, the accept test and the MAX_MATCHES cap
-    (focr_tpu/models/ncc.py:1429-1461, 1489-1497). Not on the main path."""
+    (focr_tpu/models/ncc.py:1429-1461, 1489-1497). Not on the main path (K3,
+    ops/replay_kernels.py, replays there)."""
     T = len(starts)
     _, nh, nw = bank.shape
     n = nh * nw
@@ -493,7 +501,7 @@ class NccMatcher:
         self, page: np.ndarray, verbose: bool = False, raw: bool = False, out=None,
         sync: bool = False,
     ) -> list[MatchWithLetter]:
-        """Device search + exact host recheck; hits in reference order
+        """Device search and exact replay; hits in reference order
         (get_hits, ncc.rs:544-721).
 
         ``sync``: fence the device after every size group's dispatch, so the
@@ -512,10 +520,10 @@ class NccMatcher:
         """Every page's hits (HitStruct when ``struct``), in page order, from
         waves of WAVE pages through three stages on three sets of threads, as
         focr_tpu runs them (models/ncc.py:549-613): a dispatch thread
-        (_dispatch_wave: invert, crop, upload, sweep, compaction), a fetch
-        thread (_fetch_wave: the wait for the wave's positions) and the
-        collect pool (COLLECT_THREADS pages at once; the replay releases the
-        GIL), with up to PIPELINE_DEPTH waves in flight beyond the one being
+        (_dispatch_wave: invert, crop, upload, sweep, compaction, replay), a
+        fetch thread (_fetch_wave: the wait for the wave's hits) and the
+        collect pool (COLLECT_THREADS pages at once: assembly and ``post``),
+        with up to PIPELINE_DEPTH waves in flight beyond the one being
         collected, so a wave's upload and sweep run under the previous wave's
         collection. With ``verbose`` pages collect serially, so the stderr
         lines keep the reference's order. ``post``: applied to each page's
@@ -530,7 +538,7 @@ class NccMatcher:
         """Multi-card corpus search (focr_tpu/models/ncc.py:615-647): the
         pages are dealt over every slot of the mesh, pages and glyphs axes
         alike (data parallelism: ncc has no glyph axis worth sharding), each
-        slot sweeping its pages with K1 and K2; the host replay is unchanged.
+        slot sweeping and replaying its pages with K1, K2 and K3.
         Bit-identical to get_hits_many. Pages should share one shape (the
         caller buckets).
 
@@ -620,8 +628,8 @@ class NccMatcher:
     def _get_hits_many_multiproc(self, pages: list[np.ndarray], mesh, struct: bool, post) -> list:
         """The mesh path under several processes (focr_tpu/models/ncc.py:
         791-861): each process scatters a strided share of the corpus
-        (pages[rank::P] for the owner of rank ``rank``) over its OWN slots and
-        replays its hits exactly on the host; then the per-page hit ARRAYS —
+        (pages[rank::P] for the owner of rank ``rank``) over its OWN slots,
+        K3 replaying its hits exactly there; then the per-page hit ARRAYS —
         not device buffers — are all-gathered over gloo, so every process
         reconstructs the identical full ordered result. The lengths go first,
         then one u8 buffer padded to the longest (mesh.all_gather_bytes).
@@ -669,11 +677,12 @@ class NccMatcher:
         """First half of the device stage for one wave: per page shape,
         invert, crop to the wave's ink bbox, upload once; per size group K1,
         K2's count kernel, one wait for the group's counts (they size its
-        output), K2's emit kernel; then every group's positions are copied to
-        one pinned host buffer without blocking and an event is recorded
-        behind the copies. On a card all of it runs on the slot's stream
-        (``slot``: a mesh slot, or None for the matcher's own device and side
-        stream), with the slot's card as the current device. A wave with G
+        output), K2's emit kernel, K3's replay of the positions; then every
+        group's hits are copied to one pinned host buffer without blocking
+        and an event is recorded behind the copies. On a card all of it runs
+        on the slot's stream (``slot``: a mesh slot, or None for the
+        matcher's own device and side stream), with the slot's card as the
+        current device. A wave with G
         swept groups waits G times here and once in _fetch_wave (HOST_WAITS).
 
         ``measure``: a dict; when given, the device is fenced after the
@@ -698,9 +707,9 @@ class NccMatcher:
             by_shape.setdefault(p.shape, []).append(i)
         per_page: list = [None] * len(batch)
         swept: list[tuple] = []
-        pos_dev: list[torch.Tensor] = []
+        hits_dev: list[torch.Tensor] = []
         held: list[torch.Tensor] = []
-        n_pos = 0  # positions of the wave so far
+        thr_f64 = float(np.float32(self.threshold))
         for (H, W), idxs in by_shape.items():
             inv = np.empty((len(idxs), H, W), np.uint8)
             for k, i in enumerate(idxs):
@@ -746,52 +755,57 @@ class NccMatcher:
                     off, hcnt, _ = (t.numpy() for t in split_counts(
                         to_host([head])[0], len(idxs), len(grp.needle_ids)))
                     total = int(off[-1])
-                    pos_dev.append(compact_emit(mask, rcnt, row_off, total))
+                    pos = compact_emit(mask, rcnt, row_off, total)
                     del mask, rcnt, row_off  # free before the next group's sweep
+                    d_off, d_hcnt, _ = split_counts(head, len(idxs), len(grp.needle_ids))
+                    hits_dev.append(ncc_replay(inv_dev, pos, d_off, d_hcnt, dg.bank, dg.s_n,
+                                               dg.s2_n, thr_f64, y0, x0, MAX_MATCHES))
+                    del pos
                     if measure is not None:
                         if cuda:
                             torch.cuda.synchronize(st.device)
                         key = (grp.nh, grp.nw)
                         measure[key] = measure.get(key, 0.0) + time.perf_counter() - tg
-                    swept.append((plans, len(plans[0]), grp, off, hcnt, n_pos, n_pos + total))
-                    n_pos += total
+                    swept.append((plans, len(plans[0]), grp, off, hcnt, total))
                     for pp in plans:
                         pp.append(None)  # this group's place, filled by _fetch_wave
             for k, i in enumerate(idxs):
                 per_page[i] = (batch[i], inv[k], plans[k], t0, crop)
-        pos = event = None
+        hits, event = hits_dev, None
         if swept and cuda:
-            buf = st.pinned.take(4 * n_pos)
+            # each group's buffer at an 8-byte boundary of one pinned buffer
+            at = np.cumsum([0] + [-(-h.numel() // 8) * 8 for h in hits_dev])
+            buf = st.pinned.take(int(at[-1]))
             held.append(buf)
-            pos = buf[: 4 * n_pos].view(torch.int32)
-            for (*_, lo, hi), p in zip(swept, pos_dev):
-                pos[lo:hi].copy_(p, non_blocking=True)
-        elif swept:
-            pos = torch.cat(pos_dev)
+            hits = [buf[a : a + h.numel()] for a, h in zip(at.tolist(), hits_dev)]
+            for dst, h in zip(hits, hits_dev):
+                dst.copy_(h, non_blocking=True)
         if held:  # behind every copy that reads or writes a held buffer
             event = torch.cuda.Event()
             event.record()
-        return _Dispatched(per_page, swept, pos, event, held, st.pinned)
+        return _Dispatched(per_page, swept, hits, event, held, st.pinned)
 
     def _fetch_wave(self, disp: _Dispatched) -> list[tuple]:
         """Second half of the device stage: one wait for the wave's event
-        (every group's positions are then on the host), the positions cut by
-        page into the plans, the pinned buffers given back. Returns per page
-        (page, inverted page, plan, start time, crop) with plan = [(group,
-        "empty" | "sweep", (crop-local positions i32, per-needle counts
-        i32))]."""
+        (every group's hits are then on the host), the hits cut by page into
+        the plans, the pinned buffers given back. Returns per page (page,
+        inverted page, plan, start time, crop) with plan = [(group, "empty" |
+        "sweep", (x i32, y i32, sim f32, counts i32 [T], warn u8 [T],
+        candidates i32 [T]))]: K3's output for the page's candidates, needle
+        t's hits at the sum of the candidates of the needles before it."""
         if disp.swept or disp.event is not None:
             _count_host_wait()
         if disp.event is not None:
             with record_function("focr_ncc_fetch_wave"):
                 disp.event.synchronize()
-        if disp.swept:
-            pos = disp.pos.numpy()
+        for (plans, slot, grp, off, hcnt, total), h in zip(disp.swept, disp.hits):
             if disp.held:
-                pos = pos.copy()  # out of the pinned buffer, which goes back to the pool
-            for plans, slot, grp, off, hcnt, lo, hi in disp.swept:
-                for k, pp in enumerate(plans):
-                    pp[slot] = (grp, "sweep", (pos[lo:hi][off[k] : off[k + 1]], hcnt[k]))
+                h = h.clone()  # out of the pinned buffer, which goes back to the pool
+            x, y, sim, counts, warn = (v.numpy() for v in split_replay(
+                h, total, len(plans), len(grp.needle_ids)))
+            for k, pp in enumerate(plans):
+                a, b = off[k], off[k + 1]
+                pp[slot] = (grp, "sweep", (x[a:b], y[a:b], sim[a:b], counts[k], warn[k], hcnt[k]))
         for buf in disp.held:
             disp.pool.give(buf)
         disp.held = []
@@ -801,15 +815,14 @@ class NccMatcher:
         self, dispatched, verbose: bool, raw: bool, out, struct: bool = False,
         meas: dict | None = None,
     ):
-        """Exact f64 replay of one page's candidates, assembled in reference
-        order, with the reference's verbose and raw diagnostics.
+        """One page's hits from K3's replay, assembled in reference order,
+        with the reference's WARN lines and verbose and raw diagnostics.
 
         ``meas``: per-group measured wall seconds from a sync dispatch
         (--verbose-sync); None = the default, where per-group time is
         unobservable and the page span is attributed by search share."""
-        page, inv, plan, t_dispatch, crop = dispatched
+        page, _, plan, t_dispatch, _ = dispatched
         H, W = page.shape
-        thr_f64 = np.float64(np.float32(self.threshold))
         # device work and the fetch are one span per wave; attribute the page
         # span to groups by their share of searches
         page_elapsed = time.perf_counter() - t_dispatch
@@ -835,7 +848,7 @@ class NccMatcher:
                 elapsed = page_elapsed * len(grp.needle_ids) / total_searches
             for i in grp.needle_ids:
                 needle_s[i] = elapsed / max(len(grp.needle_ids), 1)
-            self._replay_group(grp, data, inv, thr_f64, per_needle, crop)
+            self._group_hits(grp, data, per_needle)
             if verbose:
                 per_search_ms = elapsed * 1000.0 / max(len(grp.needle_ids), 1)
                 ns_per_px = elapsed * 1e9 / (W * H) / max(len(grp.needle_ids), 1)
@@ -878,13 +891,12 @@ class NccMatcher:
             all_hits.extend(self._needle_objects(i, arrs))
         return all_hits
 
-    def _replay_group(self, grp, data, inv, thr_f64, per_needle, crop) -> None:
-        """One swept size group: the exact f64 replay of its candidates in
-        the host library, each needle's hits filled in as focr_tpu fills
-        them (models/ncc.py:1463-1488), WARN line included."""
-        args = replay_inputs(grp, data, inv, crop, thr_f64)
-        out_x, out_y, out_sim, counts, warn = ncc_cpu.replay_group(*args)
-        starts = args[2]
+    def _group_hits(self, grp, data, per_needle) -> None:
+        """One swept size group of one page: each needle's hits from K3's
+        output, filled in as focr_tpu fills them from its host replay
+        (models/ncc.py:1463-1488), WARN line included."""
+        out_x, out_y, out_sim, counts, warn, hcnt = data
+        starts = np.cumsum(hcnt, dtype=np.int64) - hcnt
         for ti, i in enumerate(grp.needle_ids):
             if warn[ti]:
                 print(f"WARN got >= {MAX_MATCHES} matches", file=sys.stderr)

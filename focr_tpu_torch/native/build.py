@@ -1,10 +1,12 @@
 """Build and bind the two native libraries of csrc/, each a .so with a plain C
 interface loaded with ctypes:
 
-  the CUDA kernels (csrc/*.cu, nvcc) — the device stages of every path;
-  the ncc host library (csrc/ncc_host.cpp, g++) — the exact f64 replay, the
-      post-processing scans and the all-host search (native/ncc_cpu.py), and
-      the PNG reader's row unfiltering (io/images.py).
+  the CUDA kernels (csrc/*.cu, nvcc) — the device stages of every path,
+      the ncc exact f64 replay (K3) included;
+  the ncc host library (csrc/ncc_host.cpp, g++) — the post-processing scans
+      and the all-host search (native/ncc_cpu.py), the PNG reader's row
+      unfiltering (io/images.py), and the host copy of the exact replay that
+      the tests hold K3 against.
 
 Each is built at first use into focr_tpu_torch/_build/, named by a hash of its
 sources and its flags (the host library's also by the compiler's name and the
@@ -17,9 +19,10 @@ not start): nothing falls back to another implementation.
 
 CUDA: each source compiles in its own nvcc process, all started together, and
 one more links the objects. Flags: sm_90a (Hopper), and --fmad=false with no
-fast-math, because the ncc sweep's f32 threshold test and the proportional
-decoder's f32 cursor rely on every op rounding on its own (see
-csrc/ncc_sweep.cu and csrc/focr_prop.cu).
+fast-math, because the ncc sweep's f32 threshold test, the replay's f64
+similarity and the proportional decoder's f32 cursor rely on every op
+rounding on its own (see csrc/ncc_sweep.cu, csrc/ncc_replay.cu and
+csrc/focr_prop.cu).
 
 Host: g++ -O3 -march=native -ffp-contract=off -fopenmp. -ffp-contract=off is
 load-bearing: gcc's default contraction fuses the replay's f64
@@ -46,7 +49,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ncc_sweep.cu", "ncc_compact.cu", "focr_ssd.cu", "focr_prop.cu")
+SOURCES = ("ncc_sweep.cu", "ncc_compact.cu", "ncc_replay.cu", "focr_ssd.cu", "focr_prop.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -148,6 +151,9 @@ def load() -> ctypes.CDLL:
     lib.focr_ncc_compact_count.restype = i
     lib.focr_ncc_compact.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
     lib.focr_ncc_compact.restype = i
+    lib.focr_ncc_replay.argtypes = [p, i, i, i, p, p, p, i, p, i, i, p, p, ctypes.c_double, i,
+                                    i, i, ctypes.c_longlong, p, p, p, p, p, p]
+    lib.focr_ncc_replay.restype = i
     lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i, i, i, p, p, p, p]
     lib.focr_ssd_argmin.restype = i
     lib.focr_ssd_combine.argtypes = [p, p, i, ctypes.c_longlong, i, p, p]

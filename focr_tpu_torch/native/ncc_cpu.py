@@ -3,8 +3,11 @@
 Counterpart of focr_tpu/native/ncc_cpu.py, with its signatures and return
 values:
 
-  replay_group       — the exact f64 replay of the device's candidates; the
-                       matcher's main path (models/ncc.py::NccMatcher)
+  replay_group       — the exact f64 replay of the device's candidates, as
+                       focr_tpu runs it on the host; off the port's main
+                       path, where K3 (ops/replay_kernels.py) replays on
+                       the card: the yardstick the tests and chip_smoke.py
+                       hold K3 against
   post_sort_winners  — the stable radix sort + overlap-run winner scan of
                        post-processing (models/post.py::_winner_arrays)
   post_winners       — the winner scan over sorted keys (post.py::_run_winners)
@@ -15,8 +18,8 @@ raises, and no caller falls back to NumPy. The NumPy formulations stay beside
 their callers as plain versions for the tests (models/ncc.py::
 replay_group_reference, models/post.py::run_winners_reference and
 winner_arrays_reference). Every entry point counts its calls in
-``NATIVE_CALLS``. The calls release the GIL (ctypes), so the matcher's
-collect threads replay pages in parallel.
+``NATIVE_CALLS``. The calls release the GIL (ctypes), so several threads may
+call at once.
 """
 
 from __future__ import annotations
@@ -35,10 +38,10 @@ NATIVE_CALLS = {
     "post_sort_winners": 0,
 }
 _calls_lock = threading.Lock()  # collect threads count concurrently
-# OpenMP threads of one replay_group call. The matcher replays
-# models/ncc.py::COLLECT_THREADS pages at once, so a call's team is its share
-# of the cores, not all of them: the two constants are sized together
-# (PERF.md has the card's host's numbers). 0 is the runtime's default team.
+# OpenMP threads of one replay_group call (0: the runtime's default team,
+# every core). Two, as when the collect pool ran COLLECT_THREADS = 4 replays
+# at once on 8 cores; the pool no longer replays (K3 does, on the card), so
+# the team only sizes the yardstick's calls.
 REPLAY_TEAM = 2
 
 # csrc/ncc_host.cpp's FMatch {uint16 x, uint16 y, float similarity}

@@ -7,9 +7,9 @@ kernel for a tensor on a CUDA card; there is no fallback between the two. Each
 wrapper counts its kernel launches in ``LAUNCHES``.
 
 Semantics (pallas_ncc.py:12-20): the sweep's mask is an ε-superset of the
-reference's accept set over the search domain y >= 1, x >= 1; the matcher
-replays every candidate in exact f64 on the host, so results are bit-identical
-to the oracle. The sweep has two tiers (``sweep_tier``), each an instance of
+reference's accept set over the search domain y >= 1, x >= 1; K3
+(ops/replay_kernels.py) replays every candidate in exact f64 on the card, so
+results are bit-identical to the oracle. The sweep has two tiers (``sweep_tier``), each an instance of
 the one kernel:
 
   narrow — focr_tpu's Pallas test (pallas_ncc.py:205-220), division-free,

@@ -1,5 +1,5 @@
-"""K1 (both tiers), K2 (count and emit), K4 (both instances), K4p, K6 and K5
-on a CUDA card against their plain PyTorch versions, exactly.
+"""K1 (both tiers), K2 (count and emit), K3, K4 (both instances), K4p, K6 and
+K5 on a CUDA card against their plain PyTorch versions, exactly.
 
 Marked ``cuda``: each test skips without a card. On a machine with one, run
 
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from focr_tpu_torch.ops import ncc_kernels, prop_kernels, ssd_kernels
+from focr_tpu_torch.ops import ncc_kernels, prop_kernels, replay_kernels, ssd_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -89,6 +89,32 @@ def test_kernels_match_plain_versions(cuda, case):
     out_r = ncc_kernels.compact_hits_reference(mask, rcnt)
     assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out, out_r))
     assert int(out[3].sum()) > 0
+
+
+@pytest.mark.parametrize("max_matches", [1024, 3])
+@pytest.mark.parametrize("case", list(CASES))
+def test_replay_matches_plain_version(cuda, case, max_matches):
+    """K3 on K1's and K2's candidates of each case (a crop origin of (3, 5)
+    added to the coordinates) against its plain version on the card: the
+    kept hits (x, y, the f32 similarities' bits), counts and WARN flags
+    identical, at MAX_MATCHES and at a cap of 3."""
+    B, H, W, T, nh, nw, thr, seed, density = CASES[case]
+    imgs, needles, s_n, s2_n = (torch.from_numpy(a).to(cuda)
+                                for a in _inputs(B, H, W, T, nh, nw, seed, density))
+    mask, rcnt = ncc_kernels.ncc_sweep(imgs, needles, s_n, s2_n, thr)
+    pos, off, hcnt, _ = ncc_kernels.compact_hits(mask, rcnt)
+    args = (imgs, pos, off, hcnt, needles, s_n, s2_n, float(np.float32(thr)), 3, 5, max_matches)
+    replay_kernels.reset_launches()
+    got = replay_kernels.replay_hits(replay_kernels.ncc_replay(*args), off, hcnt)
+    torch.cuda.synchronize()
+    assert replay_kernels.LAUNCHES == {"ncc_replay": 1}
+    want = replay_kernels.replay_hits(replay_kernels.ncc_replay_reference(*args), off, hcnt)
+    for a, b in zip(got, want, strict=True):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if max_matches == 3:  # a needle warns exactly when it reaches the cap
+        assert torch.equal(got[4].bool(), got[3] == 3)
 
 
 @pytest.mark.parametrize("case", ["no-candidates", "blank-page", "dense", "many-chunks"])

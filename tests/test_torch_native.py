@@ -4,6 +4,7 @@ on the CPU, exactly: f32 similarity bytes, coordinates, counts, warn flags
 and winner indices."""
 
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -21,6 +22,8 @@ from focr_tpu_torch.models import post as torch_post
 from focr_tpu_torch.models.types import MAX_MATCHES, RenderOptions as TRenderOptions
 from focr_tpu_torch.native import build, ncc_cpu
 from focr_tpu_torch.ops.ncc import word_stride
+from focr_tpu_torch.ops.ncc_kernels import compact_emit
+from focr_tpu_torch.ops.replay_kernels import ncc_replay
 from focr_tpu_torch.oracle.ncc_direct import direct_search
 from focr_tpu_torch.oracle.ncc_oracle import Searcher
 
@@ -104,11 +107,12 @@ def _text_page(face):
 
 
 @pytest.mark.parametrize("case", ["cropped", "uncropped"])
-def test_matcher_native_replay_matches_plain(faces, case):
-    """Through NccMatcher (device="cpu"): every swept group's candidates,
-    remapped to the full page, replay identically in the host library, in
-    focr_tpu's native tier and in the NumPy plain version; the matcher's hits
-    equal focr_tpu's."""
+def test_matcher_native_replay_matches_plain(faces, case, monkeypatch):
+    """Through NccMatcher (device="cpu"): every swept group's candidates (K2's
+    positions), remapped to the full page, replay identically in the host
+    library, in focr_tpu's native tier, in the NumPy plain version and in
+    K3's plain version, whose output the wave's plan holds; the matcher's
+    hits equal focr_tpu's."""
     if case == "cropped":
         page, alphabet, kw = _text_page(faces[0]), "AB01ab", dict(x_bits=1, threshold=0.5)
         size = 11.0
@@ -116,17 +120,25 @@ def test_matcher_native_replay_matches_plain(faces, case):
         page, alphabet, kw = _noise_page(), "AbQ", dict(threshold=0.3)
         size = 13.0
     tm = torch_ncc.NccMatcher(faces[1], alphabet, TRenderOptions(size=size), device="cpu", **kw)
+    positions = []
+
+    def emit(*args):
+        positions.append(compact_emit(*args))
+        return positions[-1]
+
+    monkeypatch.setattr(torch_ncc, "compact_emit", emit)
     (d,) = tm._sweep_wave([page])
     _, inv, plan, _, crop = d
     assert (tuple(crop[2:]) == page.shape) == (case == "uncropped")
     thr64 = np.float64(np.float32(tm.threshold))
     hits = 0
-    for grp, kind, data in plan:
+    for (grp, kind, data), pos in zip(plan, positions, strict=True):
         assert kind == "sweep"
-        args = torch_ncc.replay_inputs(grp, data, inv, crop, thr64)
+        args = torch_ncc.replay_inputs(grp, (pos.numpy(), data[5]), inv, crop, thr64)
         got = _replay_key(ncc_cpu.replay_group(*args), args[2])
         assert got == _replay_key(torch_ncc.replay_group_reference(*args), args[2])
         assert got == _replay_key(jax_native.replay_group(*args), args[2])
+        assert got == _replay_key(data[:5], args[2])  # K3's, in full-page coordinates
         hits += sum(k for k, *_ in got)
     assert hits > 0
     jm = jax_ncc.NccMatcher(faces[0], alphabet, RenderOptions(size=size), **kw)
@@ -135,9 +147,11 @@ def test_matcher_native_replay_matches_plain(faces, case):
 
 
 def test_collect_pool_counts_every_replay(faces, monkeypatch):
-    """The collect pool's threads (more pages than threads, a short switch
-    interval) replay every swept group of every page once — no lost update
-    of the shared call counter — and give each page its get_hits result."""
+    """With the collect pool's threads busy (more pages than threads, a short
+    switch interval), K3 replays every swept group of every wave once, in
+    the dispatch stage — counted under a lock from whichever thread calls
+    it, no lost update — the host library's replay never runs, and each page
+    gets its get_hits result."""
     monkeypatch.setattr(torch_ncc, "WAVE", 6)
     page = _noise_page()
     rng = np.random.default_rng(5)
@@ -145,6 +159,16 @@ def test_collect_pool_counts_every_replay(faces, monkeypatch):
     tm = torch_ncc.NccMatcher(faces[1], "AbQ", TRenderOptions(size=13.0), threshold=0.3,
                               device="cpu")
     singles = [tm.get_hits(p) for p in pages]
+    replays = {"calls": 0, "threads": set()}
+    lock = threading.Lock()
+
+    def replay(*args):
+        with lock:
+            replays["calls"] += 1
+            replays["threads"].add(threading.get_ident())
+        return ncc_replay(*args)
+
+    monkeypatch.setattr(torch_ncc, "ncc_replay", replay)
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -153,7 +177,9 @@ def test_collect_pool_counts_every_replay(faces, monkeypatch):
         calls = dict(ncc_cpu.NATIVE_CALLS)
     finally:
         sys.setswitchinterval(interval)
-    assert calls["replay_group"] == len(pages) * len(tm.groups)
+    waves = -(-len(pages) // torch_ncc.WAVE)
+    assert replays["calls"] == waves * len(tm.groups) and len(replays["threads"]) == 1
+    assert calls["replay_group"] == 0
     assert many == singles
 
 
@@ -250,8 +276,10 @@ def test_winner_arrays_match_numpy(ov):
 
 @pytest.mark.parametrize("compiler", ["missing", "failing"])
 def test_failed_host_build_raises(faces, monkeypatch, tmp_path, compiler):
-    """A host library that cannot be built makes the matcher raise with the
-    compiler's words; it never answers from the NumPy replay."""
+    """A host library that cannot be built makes the ncc path raise with the
+    compiler's words where it needs the library (post-processing's native
+    scan); it never answers from the NumPy versions, and the host replay,
+    which K3 took off the path, is never called."""
     if compiler == "missing":
         cxx, words = str(tmp_path / "no-such-g++"), "no-such-g++"
     else:
@@ -267,9 +295,10 @@ def test_failed_host_build_raises(faces, monkeypatch, tmp_path, compiler):
     monkeypatch.setattr(build, "_host_lib", None)
     ncc_cpu.reset_native_calls()
     with pytest.raises(RuntimeError, match=words):
-        tm.get_hits(page)
+        torch_post.process_hits_struct(tm.get_hits_many([page], struct=True)[0], 0.3, 5)
     with pytest.raises(RuntimeError, match=words):
-        tm.get_hits_many([page, page])
+        tm.get_hits_many([page, page], struct=True,
+                         post=lambda hs: torch_post.process_hits_text(hs, 0.3, 5))
     assert ncc_cpu.NATIVE_CALLS["replay_group"] == 0
 
 

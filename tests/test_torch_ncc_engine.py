@@ -166,14 +166,15 @@ def test_crop_remap_matches_focr_tpu(faces):
 
 def test_sweep_wave_plans_and_host_waits(monkeypatch):
     """On the golden ncc pages (their top 200 rows: the first lines of
-    text), _sweep_wave's plans hold each group's crop-local positions and
-    per-needle counts as compact_hits_reference gives them from the sweep's
-    mask, and the wave waits on the device once for each swept group's
-    counts and once for every group's positions; a blank wave never waits,
-    and a wave of two page shapes still fetches its positions once."""
+    text), _sweep_wave's plans hold each group's hits as K3's plain version
+    replays them from the crop-local positions and per-needle counts that
+    compact_hits_reference gives from the sweep's mask, with those counts
+    beside them, and the wave waits on the device once for each swept
+    group's counts and once for every group's hits; a blank wave never
+    waits, and a wave of two page shapes still fetches its hits once."""
     from focr_tpu_torch.fonts.bank import load_needle_bank
-    from focr_tpu_torch.models.types import NCC_DEFAULT_ALPHABET
-    from focr_tpu_torch.ops import ncc_kernels
+    from focr_tpu_torch.models.types import MAX_MATCHES, NCC_DEFAULT_ALPHABET
+    from focr_tpu_torch.ops import ncc_kernels, replay_kernels
 
     fixture = Path(__file__).resolve().parent / "fixtures" / "torch_ncc_golden.npz"
     with np.load(fixture, allow_pickle=False) as z:
@@ -192,17 +193,27 @@ def test_sweep_wave_plans_and_host_waits(monkeypatch):
     wave = tm._sweep_wave(pages)
     assert torch_ncc.HOST_WAITS == len(tm.groups) + 1 == 3
     assert len(sweeps) == len(tm.groups)
-    n_cand = 0
-    for gi, (grp, (mask, rcnt)) in enumerate(zip(tm.groups, sweeps)):
+    y0, x0, Hc, Wc = wave[0][4]
+    inv = torch.from_numpy(np.stack([d[1] for d in wave])[:, y0 : y0 + Hc, x0 : x0 + Wc].copy())
+    n_cand = n_hits = 0
+    for gi, (grp, dg, (mask, rcnt)) in enumerate(zip(tm.groups, tm.dev_groups, sweeps)):
         pos, off, hcnt, _ = ncc_kernels.compact_hits_reference(mask, rcnt)
+        buf = replay_kernels.ncc_replay_reference(
+            inv, pos, off, hcnt, dg.bank, dg.s_n, dg.s2_n, float(np.float32(tm.threshold)), y0,
+            x0, MAX_MATCHES)
+        want = [v.numpy() for v in replay_kernels.split_replay(buf, len(pos), *hcnt.shape)]
         for k, (_, _, plan, _, _) in enumerate(wave):
-            g, kind, (p_pos, p_hcnt) = plan[gi]
+            g, kind, (*got, p_hcnt) = plan[gi]
             assert g is grp and kind == "sweep"
-            assert p_pos.dtype == np.int32 and p_hcnt.dtype == np.int32
-            np.testing.assert_array_equal(p_pos, pos[off[k] : off[k + 1]].numpy())
+            assert [v.dtype for v in (*got, p_hcnt)] == [np.int32, np.int32, np.float32,
+                                                         np.int32, np.uint8, np.int32]
+            a, b = off[k], off[k + 1]
+            for v, w in zip(got, (*(w[a:b] for w in want[:3]), want[3][k], want[4][k])):
+                np.testing.assert_array_equal(v, w)
             np.testing.assert_array_equal(p_hcnt, hcnt[k].numpy())
-            n_cand += len(p_pos)
-    assert n_cand > 0
+            n_cand += len(got[0])
+            n_hits += int(got[3].sum())
+    assert n_cand > 0 and n_hits > 0
     torch_ncc.reset_host_waits()
     blank = tm._sweep_wave([np.full((60, 80), 255, np.uint8)])
     assert torch_ncc.HOST_WAITS == 0 and all(kind == "empty" for _, kind, _ in blank[0][2])

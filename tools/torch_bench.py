@@ -17,7 +17,11 @@ line in bench.py's shape (bench.py:485-499, without ``vs_baseline``):
      "extra": {"spread": [p05, p95], "pages": P, "reps": N, "card": "<name>,
      <power limit>", "bank_load_ms": <median of 3 loads of what the run
      loads>, "device": "cuda" | "cpu", "mesh": "PxG" | "off", "slots": [...],
-     "physical_cards": n}}
+     "physical_cards": n, "launches": {kernel: launches of the last timed
+     run}, "host_replay_calls": <the host library's replay calls in it>}}
+
+(ncc's kernels are K1, K2's two and K3, the exact replay, which the host
+library's replay no longer runs: its calls are 0 on the card's path.)
 
 ``--pages P`` (a multiple of 16) repeats the fixture's pages, so that ncc runs
 P/8 waves and not two. A wrong stdout raises; nothing is caught. Without a
@@ -190,6 +194,26 @@ def mesh_slots(shape: str, device: str) -> tuple[int, list[str]]:
     return g, slots
 
 
+def _reset_counts() -> None:
+    from focr_tpu_torch.native import ncc_cpu
+    from focr_tpu_torch.ops import ncc_kernels, prop_kernels, replay_kernels, ssd_kernels
+
+    for m in (ncc_kernels, prop_kernels, replay_kernels, ssd_kernels):
+        m.reset_launches()
+    ncc_cpu.reset_native_calls()
+
+
+def _counts() -> tuple[dict, int]:
+    """(the wrappers' launches since _reset_counts, by kernel; the host
+    library's replay calls)."""
+    from focr_tpu_torch.native import ncc_cpu
+    from focr_tpu_torch.ops import ncc_kernels, prop_kernels, replay_kernels, ssd_kernels
+
+    launches = {k: v for m in (ncc_kernels, prop_kernels, replay_kernels, ssd_kernels)
+                for k, v in m.LAUNCHES.items() if v}
+    return launches, ncc_cpu.NATIVE_CALLS["replay_group"]
+
+
 def bench(corpus: str, reps: int, n_pages: int, device: str, card: str,
           mesh: str | None = None) -> dict:
     import numpy as np
@@ -207,16 +231,19 @@ def bench(corpus: str, reps: int, n_pages: int, device: str, card: str,
         argv = cli_argv(corpus, paths * (n_pages // FIXTURE_PAGES), device, glyph_shards)
         rates = []
         for _ in range(reps):
+            _reset_counts()
             wall, out = run_cli(main, argv)
             if out != want:
                 raise AssertionError(f"{corpus}: a timed run's stdout differs from the warm-up's")
             rates.append(n_pages / wall)
+    launches, host_replays = _counts()
     p05, med, p95 = np.percentile(rates, [5, 50, 95])
     return {"metric": f"{corpus}_pages_per_sec", "value": float(med), "unit": "pages/sec",
             "extra": {"spread": [float(p05), float(p95)], "pages": n_pages, "reps": reps,
                       "card": card, "bank_load_ms": bank_load_ms(corpus), "device": device,
                       "mesh": mesh or "off", "slots": slots,
-                      "physical_cards": len(set(slots)) if mesh else 1}}
+                      "physical_cards": len(set(slots)) if mesh else 1,
+                      "launches": launches, "host_replay_calls": host_replays}}
 
 
 _STAGES = """

@@ -20,10 +20,13 @@ profile — for each CLI: the wall of N warm runs (default 6), with the ncc
     the wall); one run under cProfile with the ncc stages in series (pipeline
     depth 0, one collect thread: cProfile follows every thread, so
     overlapping stages would interleave the stacks), reduced to the
-    cumulative seconds of the stages named in STAGES; one run under
-    torch.profiler, reduced to the device time by kernel and in all (device
-    busy = device time / wall); for focr and prop the bank load by crop
-    height (opening the set, then each height's decompression).
+    cumulative seconds of the stages named in STAGES (ncc: the dispatch
+    stage launches K1, K2 and K3 — ``ncc_replay`` is K3's call, the exact
+    replay — and the collect stage only assembles K3's hits, ``_group_hits``);
+    one run under torch.profiler, reduced to the device time by kernel and in
+    all (device busy = device time / wall; ncc: K1's, K2's and K3's device
+    time by name beside it); for focr and prop the bank load by crop height
+    (opening the set, then each height's decompression).
 compare — runs ``time`` in a fresh process for OTHER_ROOT, this root, this
     root and OTHER_ROOT (in that order), each timing N warm runs of each CLI
     (with the ncc device stage's ms a run: ``_dispatch_wave`` and
@@ -41,10 +44,9 @@ kernels — the same turns, each process timing K1 and K2 (``compact_hits``:
     report (stderr).
 pool — the ncc CLI's pages/s at 16 and at 64 pages (the fixture's pages four
     times: eight waves) under each of POOL_SETTINGS (collect threads, the
-    OpenMP team of a replay call, the pipeline's depth), in four turns whose
-    order rotates and alternates (``pool depth``: only the depths, at the
-    first setting's pool and team, in eight turns); ``pool-summary`` reduces
-    a saved run to one line a setting.
+    pipeline's depth), in four turns whose order rotates and alternates
+    (``pool depth``: only the depths, at the first setting's pool, in eight
+    turns); ``pool-summary`` reduces a saved run to one line a setting.
 summary — reads the JSON lines that ``compare`` or ``kernels`` printed (saved
     to a file) and prints, for each process in order, the median and
     quartiles of every list (pages/s, the stages' ms) and every number.
@@ -75,8 +77,8 @@ RUNS = int(sys.argv[sys.argv.index("--runs") + 1]) if "--runs" in sys.argv else 
 # the stages each stage table reports (cumulative seconds of these functions)
 STAGES = {
     "ncc": ("load_needle_bank", "load_gray", "group_from_numpy", "get_hits_many",
-            "_dispatch_wave", "_fetch_wave", "_collect_page", "_replay_group",
-            "process_hits_text"),
+            "_dispatch_wave", "ncc_sweep", "compact_counts", "compact_emit", "ncc_replay",
+            "_fetch_wave", "_collect_page", "_group_hits", "process_hits_text"),
     "focr": ("load_grid_bank", "load_gray_many_isolated", "decode_pages", "_dispatch",
              "ssd_argmin", "_finish"),
     "prop": ("load_grid_bank", "load_gray_many_isolated", "decode_pages", "_decode_prop",
@@ -351,6 +353,8 @@ def profile() -> None:
                 if t and ev.device_type == torch.autograd.DeviceType.CUDA:
                     dev[ev.key] = dev.get(ev.key, 0.0) + t / 1e3
             busy = sum(dev.values())
+        by_kernel = {name: sum(v for k, v in dev.items() if f"focr_ncc_{name}_kernel" in k)
+                     for name in ("sweep", "count", "emit", "replay")}
         line = {
             "cli": cli, "pages": n, "pages_per_s": [n / w for w in walls],
             "cprofile_wall_s": wall_cp, "stages_cum_s": stages,
@@ -361,15 +365,14 @@ def profile() -> None:
         if cli == "ncc":
             line["stage_thread_ms"] = {k.strip("_"): [t * 1e3 for t in v]
                                        for k, v in spent.items()}
+            line["device_ms_k1_k2_k3"] = by_kernel
         else:
             line["bank_load"] = _bank_load_by_height(cli)
         print(json.dumps(line), flush=True)
 
 
-# (collect threads, OpenMP team of a replay call (0: the runtime's default, every
-# core), pipeline depth) to time against each other in ``pool`` mode
-POOL_SETTINGS = ((4, 2, 2), (1, 0, 2), (8, 1, 2), (4, 0, 2), (2, 4, 2), (4, 2, 0), (1, 0, 0),
-                 (4, 2, 1), (4, 2, 3))
+# (collect threads, pipeline depth) to time against each other in ``pool`` mode
+POOL_SETTINGS = ((4, 2), (2, 2), (1, 2), (8, 2), (4, 0), (4, 1), (4, 3))
 POOL_TURNS = 4
 
 
@@ -378,16 +381,14 @@ def pool(settings=POOL_SETTINGS, turns: int = POOL_TURNS) -> None:
     ``settings``, in ``turns`` turns: each turn starts two settings further
     on, and every other turn runs in reverse, so that no setting keeps one
     place in the order; RUNS warm runs each (models/ncc.py::COLLECT_THREADS
-    and PIPELINE_DEPTH, native/ncc_cpu.py::REPLAY_TEAM are set for the runs
-    and restored)."""
+    and PIPELINE_DEPTH are set for the runs and restored)."""
     import torch
 
     from focr_tpu_torch.models import ncc as ncc_model
-    from focr_tpu_torch.native import ncc_cpu
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
-    saved = (ncc_model.COLLECT_THREADS, ncc_cpu.REPLAY_TEAM, ncc_model.PIPELINE_DEPTH)
+    saved = (ncc_model.COLLECT_THREADS, ncc_model.PIPELINE_DEPTH)
     with _cli("ncc") as (main, argv, n):
         paths = argv[1 : 1 + n]
         for reps in (1, 4) * 6:  # warm both sizes: pools, pinned buffers, the host's clocks
@@ -396,18 +397,17 @@ def pool(settings=POOL_SETTINGS, turns: int = POOL_TURNS) -> None:
             for turn in range(turns):
                 k = 2 * turn % len(settings)
                 order = (settings[k:] + settings[:k])[:: -1 if turn % 2 else 1]
-                for threads, team, depth in order:
-                    ncc_model.COLLECT_THREADS, ncc_cpu.REPLAY_TEAM = threads, team
-                    ncc_model.PIPELINE_DEPTH = depth
-                    line = {"collect_threads": threads, "replay_team": team, "depth": depth,
-                            "turn": turn, "card": _card()}
+                for threads, depth in order:
+                    ncc_model.COLLECT_THREADS, ncc_model.PIPELINE_DEPTH = threads, depth
+                    line = {"collect_threads": threads, "depth": depth, "turn": turn,
+                            "card": _card()}
                     for reps in (1, 4):
                         av = _argv("ncc", paths * reps)
                         line[f"pages_per_s_{n * reps}"] = [
                             n * reps / _run(main, av) for _ in range(RUNS)]
                     print(json.dumps(line), flush=True)
         finally:
-            ncc_model.COLLECT_THREADS, ncc_cpu.REPLAY_TEAM, ncc_model.PIPELINE_DEPTH = saved
+            ncc_model.COLLECT_THREADS, ncc_model.PIPELINE_DEPTH = saved
 
 
 def pool_summary(path: str) -> None:
@@ -420,9 +420,9 @@ def pool_summary(path: str) -> None:
         for line in f:
             if line.startswith("{"):
                 r = json.loads(line)
-                by.setdefault((r["collect_threads"], r["replay_team"], r["depth"]), []).append(r)
-    for (threads, team, depth), rows in by.items():
-        out = {"collect_threads": threads, "replay_team": team, "depth": depth}
+                by.setdefault((r["collect_threads"], r["depth"]), []).append(r)
+    for (threads, depth), rows in by.items():
+        out = {"collect_threads": threads, "depth": depth}
         for key in sorted(k for k in rows[0] if k.startswith("pages_per_s_")):
             out[key] = {"turn_medians": [float(np.median(r[key])) for r in rows],
                         "median": float(np.median([v for r in rows for v in r[key]]))}
@@ -449,8 +449,8 @@ def summary(path: str) -> None:
             if not line.startswith("{"):
                 continue
             rec = json.loads(line)
-            out = {k: rec[k] for k in ("root", "cli", "collect_threads", "replay_team", "depth",
-                                       "turn") if k in rec}
+            out = {k: rec[k] for k in ("root", "cli", "collect_threads", "depth", "turn")
+                   if k in rec}
             for k, v in rec.items():
                 if isinstance(v, list) and v:
                     q1, med, q3 = np.percentile(v, [25, 50, 75])
@@ -473,9 +473,9 @@ def main() -> int:
         pool_summary(sys.argv[2])
     elif mode == "pool":
         sys.path.insert(0, HERE)
-        if "depth" in sys.argv[2:]:  # the depths alone, at the kept pool and team, more turns
-            kept = POOL_SETTINGS[0][:2]
-            pool(tuple(s for s in POOL_SETTINGS if s[:2] == kept), 2 * POOL_TURNS)
+        if "depth" in sys.argv[2:]:  # the depths alone, at the kept pool, more turns
+            kept = POOL_SETTINGS[0][0]
+            pool(tuple(s for s in POOL_SETTINGS if s[0] == kept), 2 * POOL_TURNS)
         else:
             pool()
     elif mode in ("compare", "kernels"):
