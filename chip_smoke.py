@@ -145,13 +145,18 @@ Phases, each of which raises on failure:
                four slots each on the card, the canonical corpora; both must
                print OK
  20. replay  — K3 (ncc_replay) on phase 3's wave, from K2's positions on the
-               card: against its plain PyTorch version on the card and
+               card: the candidates a (page, needle) segment holds (p50, p99,
+               max); K3 against its plain PyTorch version on the card and
                against the host library's replay of each page (x, y, the f32
                similarities' bits, counts, WARN flags; tolerance 0), with
-               MAX_MATCHES and with a cap of 5 (it must raise WARN flags);
-               then K3 timed with CUDA events (the call) and from a
-               torch.profiler trace (device time), beside its plain version
-               and the host replay, each per page
+               MAX_MATCHES and with a cap of 5 (it must raise WARN flags); the
+               same on tests/replay_cases.py's edge cases (segments of 0-769
+               candidates, a window on the crop's last byte, every instance
+               kind) at caps 1024, 33, 32 and 5; then K3 timed with CUDA
+               events (the call), from a
+               torch.profiler trace (device time) and on the host clock (the
+               wrapper's µs a call: 200 calls, one sync), beside its plain
+               version and the host replay, each per page
 
 Then a JSON line with the conv2d yardstick, one JSON line of the kernels
 (with the host tier's numbers under "host_native" and phases 13-14's under
@@ -169,7 +174,9 @@ functions). K1's entry carries its wide instance's numbers as wide_*; K2's
 (whose bytes are the mask rows that hold candidates, the row counts and its
 outputs) its count kernel's launches, each of its two kernels' ms alone, and
 the device stage's host waits a wave; K4's the instance the main path takes;
-K3's its device time and the host replay's ms per page (host_replay_ms).
+K3's its device time, the host replay's ms per page (host_replay_ms), the
+wrapper's host µs a call, the warps a segment gets and the segments'
+candidates.
 K4p's and K6's launches are those of phase 18's focr run at 2 glyph shards on
 four slots; their ms are per page of a slot's block, with the numbers at 4
 glyph shards under "by_glyph_shards". The line also carries phase 18's
@@ -180,6 +187,7 @@ cards under them).
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
 import os
@@ -1458,54 +1466,36 @@ def replay_phase(matcher, pages, launches: dict, n_pages: int, card: str) -> dic
     from focr_tpu_torch.native import ncc_cpu
     from focr_tpu_torch.ops import replay_kernels as R
 
-    def host_hits(arg_list):
-        """The host replays of a group's pages, in K3's replay_hits form."""
-        parts, counts, warns = [], [], []
-        for args in arg_list:
-            x, y, sim, c, w = ncc_cpu.replay_group(*args)
-            idx = np.concatenate([np.arange(a, a + k) for a, k in zip(args[2], c)]
-                                 or [np.zeros(0, np.int64)]).astype(np.int64)
-            parts.append((x[idx], y[idx], sim[idx]))
-            counts.append(c)
-            warns.append(w)
-        return (*(np.concatenate([p[i] for p in parts]) for i in range(3)), np.stack(counts),
-                np.stack(warns))
-
-    def max_err(a, b) -> int:
-        """Largest |difference| over x, y, the f32 sims' bits, counts, warn."""
-        e = 0
-        for u, v in zip(a, b, strict=True):
-            u, v = (np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in (u, v))
-            if u.shape != v.shape:
-                raise AssertionError(f"K3: shapes {u.shape} and {v.shape} differ")
-            if u.dtype == np.float32:
-                u, v = u.view(np.int32), v.view(np.int32)
-            if u.size:
-                e = max(e, int(np.abs(u.astype(np.int64) - v.astype(np.int64)).max()))
-        return e
-
     thr = float(np.float32(matcher.threshold))
     cw = canonical_wave(matcher, pages)
     B = len(cw[0][2])
+    # candidates a (page, needle) segment on the canonical wave
+    lens = np.concatenate([hcnt.cpu().numpy().reshape(-1) for *_, hcnt in cw])
+    dist = {"segments": int(lens.size), "p50": float(np.percentile(lens, 50)),
+            "p99": float(np.percentile(lens, 99)), "max": int(lens.max()),
+            "mean": float(lens.mean())}
+    log(f"[replay] candidates a (page, needle) segment on the {B}-page wave: {dist}")
     err = n_cand = n_hits = n_capped = 0
     ops = moved = 0
     timed = []  # (K3's arguments, the host replay's) of each group
     for grp, dg, inv, crop, inv_dev, pos, off, hcnt in cw:
         for mm in (MAX_MATCHES, 5):
-            kargs = (inv_dev, pos, off, hcnt, dg.bank, dg.s_n, dg.s2_n, thr, crop[0], crop[1], mm)
-            buf = R.ncc_replay(*kargs)
-            got = R.replay_hits(buf, off, hcnt)
-            plain = R.replay_hits(R.ncc_replay_reference(*kargs), off, hcnt)
-            torch.cuda.synchronize()
+            tail = (thr, crop[0], crop[1], mm)
+            plain = R.replay_hits(R.ncc_replay_reference(
+                inv_dev, pos, off, hcnt, dg.bank, dg.s_n, dg.s2_n, *tail), off, hcnt)
             hargs = host_replay_inputs(grp, inv, crop, pos, off, hcnt, thr, mm)
-            e_plain, e_host = max_err(got, plain), max_err(got, host_hits(hargs))
+            host = _host_hits(hargs)
+            kargs = (inv_dev, pos, off, hcnt, dg.replay, *tail)
+            got = R.replay_hits(R.ncc_replay(*kargs), off, hcnt)
+            torch.cuda.synchronize()
+            e_plain, e_host = _bits_err(got, plain), _bits_err(got, host)
             kept, warned = int(got[3].sum()), int(got[4].sum())
             log(f"[replay] group {grp.nw}x{grp.nh}, max_matches {mm}: {len(pos)} candidates, "
                 f"{kept} hits, {warned} WARN flags; K3 vs plain max|err| {e_plain}, vs the host "
                 f"library {e_host}")
             if e_plain or e_host:
-                raise AssertionError(f"K3 mismatch in group {grp.nw}x{grp.nh}, max_matches {mm}: "
-                                     f"plain {e_plain}, host {e_host}")
+                raise AssertionError(f"K3 mismatch in group {grp.nw}x{grp.nh}, max_matches "
+                                     f"{mm}: plain {e_plain}, host {e_host}")
             err = max(err, e_plain, e_host)
             if mm != MAX_MATCHES:
                 n_capped += warned
@@ -1521,10 +1511,24 @@ def replay_phase(matcher, pages, launches: dict, n_pages: int, card: str) -> dic
                       + 12 * kept + 5 * B * T)
     if not n_capped:
         raise AssertionError("K3: the cap of 5 raised no WARN flag")
+    edges = replay_edge_cases(R)
+    err = max(err, edges["max_abs_err"])
     ms = sum(cuda_ms(lambda: R.ncc_replay(*ka), 20) for ka, _ in timed) / B
     dev_ms = sum(device_ms(lambda: R.ncc_replay(*ka), 20, "focr_ncc_replay")
                  for ka, _ in timed) / B
-    plain_ms = sum(cuda_ms(lambda: R.ncc_replay_reference(*ka), 3) for ka, _ in timed) / B
+    plain_ms = sum(cuda_ms(lambda: R.ncc_replay_reference(
+        *ka[:4], ka[4].bank, ka[4].s_n, ka[4].s2_n, *ka[5:9]), 3) for ka, _ in timed) / B
+    # the wrapper's host time a call: many calls, one wait at the end
+    host_us = []
+    for ka, _ in timed:
+        R.ncc_replay(*ka)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(200):
+            R.ncc_replay(*ka)
+        t1 = time.perf_counter_ns()
+        torch.cuda.synchronize()
+        host_us.append((t1 - t0) / 200 / 1e3)
     host = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1537,16 +1541,96 @@ def replay_phase(matcher, pages, launches: dict, n_pages: int, card: str) -> dic
     n3, n1 = launches["ncc_replay"], launches["ncc_sweep"]
     log(f"[replay] {B}-page wave: {n_cand / B:.0f} candidates and {n_hits / B:.0f} hits a page, "
         f"K3 identical to its plain version and to the host library with MAX_MATCHES and with a "
-        f"cap of 5 ({n_capped} WARN flags); ms/page K3 {ms:.5f} as the call is timed, "
-        f"{dev_ms:.5f} of device time (plain {plain_ms:.4f}, host library replay {host_ms:.4f}, "
-        f"bound {bound_ms:.6f} by {bound_by}); launches on the counted CLI run {n3} (K1 {n1}, "
-        f"{n3 / n_pages:g} a page); card {card}")
+        f"cap of 5 ({n_capped} WARN flags), {R.WARPS} warps a segment; ms/page K3 "
+        f"{ms:.5f} as the call is timed, {dev_ms:.5f} of device time (plain {plain_ms:.4f}, "
+        f"host library replay {host_ms:.4f}, bound {bound_ms:.6f} by {bound_by}); the wrapper's "
+        f"host time a call {', '.join(f'{v:.1f}' for v in host_us)} us by group; launches on the "
+        f"counted CLI run {n3} (K1 {n1}, {n3 / n_pages:g} a page); card {card}")
     return {"name": "ncc_replay", "route": "cuda", "source": "focr_tpu_torch/csrc/ncc_replay.cu",
             "replaces": "focr_tpu/models/ncc.py:1422", "launches": n3,
             "launches_per_page": n3 / n_pages, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "host_replay_ms": host_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "candidates_per_page": n_cand / B,
-            "hits_per_page": n_hits / B}
+            "hits_per_page": n_hits / B, "host_us_per_call": host_us,
+            "warps": R.WARPS,
+            "segment_candidates": dist, "edge_cases": edges["cases"]}
+
+
+def replay_edge_cases(R) -> dict:
+    """K3 on tests/replay_cases.py's design cases on the card: against its
+    plain version on the card and the host library's replay of each page,
+    bit for bit, at MAX_MATCHES and caps of 33, 32 and 5."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.models.types import MAX_MATCHES
+    # by its path: a package named ``tests`` elsewhere on sys.path would win
+    # over the repo's tests directory, which is no package
+    spec = importlib.util.spec_from_file_location(
+        "replay_cases", os.path.join(REPO, "tests", "replay_cases.py"))
+    C = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(C)
+
+    err = runs = 0
+    for nw in C.EDGE_WIDTHS:
+        case = C.replay_case(nw, seed=nw)
+        t = {k: torch.from_numpy(v).cuda() for k, v in case.items() if isinstance(v, np.ndarray)}
+        args = (t["imgs"], t["pos"], t["off"], t["hcnt"])
+        nd = R.replay_needles(t["bank"], t["s_n"], t["s2_n"])
+        for mm in (MAX_MATCHES, 33, 32, 5):
+            plain = R.replay_hits(R.ncc_replay_reference(
+                *args, t["bank"], t["s_n"], t["s2_n"], case["thr_f64"], 0, 0, mm),
+                t["off"], t["hcnt"])
+            host = _host_hits([C.host_args(case, b, mm) for b in range(len(case["hcnt"]))])
+            got = R.replay_hits(R.ncc_replay(*args, nd, case["thr_f64"], 0, 0, mm),
+                                t["off"], t["hcnt"])
+            torch.cuda.synchronize()
+            e = max(_bits_err(got, plain), _bits_err(got, host))
+            runs += 1
+            if e:
+                raise AssertionError(f"K3 edge case nw {nw}, max_matches {mm}: max|err| {e}")
+            err = max(err, e)
+    log(f"[replay] edge cases (segments of {C.SEGMENT_LENGTHS} candidates, a window on the "
+        f"crop's last byte, widths {C.EDGE_WIDTHS}; caps 1024, 33, 32, 5): "
+        f"{runs} runs, K3 identical to its plain version and to the host library")
+    return {"max_abs_err": err, "cases": runs}
+
+
+def _host_hits(arg_list) -> tuple:
+    """The host library's replays of one group's pages (each page's
+    replay_group arguments), in K3's replay_hits form."""
+    import numpy as np
+
+    from focr_tpu_torch.native import ncc_cpu
+
+    parts, counts, warns = [], [], []
+    for args in arg_list:
+        x, y, sim, c, w = ncc_cpu.replay_group(*args)
+        idx = np.concatenate([np.arange(a, a + k) for a, k in zip(args[2], c)]
+                             or [np.zeros(0, np.int64)]).astype(np.int64)
+        parts.append((x[idx], y[idx], sim[idx]))
+        counts.append(c)
+        warns.append(w)
+    return (*(np.concatenate([p[i] for p in parts]) for i in range(3)), np.stack(counts),
+            np.stack(warns))
+
+
+def _bits_err(a, b) -> int:
+    """Largest |difference| over x, y, the f32 sims' bits, counts and warn of
+    two replay_hits results (tensors on any device, or NumPy arrays)."""
+    import numpy as np
+    import torch
+
+    e = 0
+    for u, v in zip(a, b, strict=True):
+        u, v = (np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in (u, v))
+        if u.shape != v.shape:
+            raise AssertionError(f"K3: shapes {u.shape} and {v.shape} differ")
+        if u.dtype == np.float32:
+            u, v = u.view(np.int32), v.view(np.int32)
+        if u.size:
+            e = max(e, int(np.abs(u.astype(np.int64) - v.astype(np.int64)).max()))
+    return e
 
 
 def main() -> int:

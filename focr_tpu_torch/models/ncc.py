@@ -74,7 +74,9 @@ from focr_tpu_torch.ops.ncc_kernels import (
     sweep_terms,
     to_host,
 )
-from focr_tpu_torch.ops.replay_kernels import ncc_replay, split_replay
+from focr_tpu_torch.ops.replay_kernels import (
+    ReplayNeedles, ncc_replay, replay_needles, split_replay,
+)
 from focr_tpu_torch.parallel import mesh as mesh_mod
 from focr_tpu_torch.utils.device import resolve_device, slot_scope
 
@@ -305,6 +307,7 @@ class DeviceGroup:
     rtn: torch.Tensor  # [T] f32 √norm², +inf for zero-variance needles
     thr_eps: float  # f32(threshold) − f32(ε), exactly representable in f32
     afrag: torch.Tensor  # int32 [ceil(T/16), nks, 32, 4] pack_needle_fragments(bank)
+    replay: ReplayNeedles  # bank, s_n and s2_n as K3 takes them, checked once
 
     @property
     def terms(self) -> tuple[torch.Tensor, torch.Tensor, float]:
@@ -324,10 +327,12 @@ def group_from_numpy(
     s2_n_t = torch.from_numpy(np.ascontiguousarray(s2_n, dtype=np.int64))
     n = bank_t.shape[1] * bank_t.shape[2]
     sn_n, rtn, thr_eps = sweep_terms(s_n_t, s2_n_t, n, threshold)
+    bank_d, s_n_d, s2_n_d = bank_t.to(device), s_n_t.to(device), s2_n_t.to(device)
     return DeviceGroup(
-        bank=bank_t.to(device), s_n=s_n_t.to(device), s2_n=s2_n_t.to(device),
+        bank=bank_d, s_n=s_n_d, s2_n=s2_n_d,
         sn_n=sn_n.to(device), rtn=rtn.to(device), thr_eps=thr_eps,
         afrag=pack_needle_fragments(bank_t).to(device),
+        replay=replay_needles(bank_d, s_n_d, s2_n_d),
     )
 
 
@@ -758,8 +763,8 @@ class NccMatcher:
                     pos = compact_emit(mask, rcnt, row_off, total)
                     del mask, rcnt, row_off  # free before the next group's sweep
                     d_off, d_hcnt, _ = split_counts(head, len(idxs), len(grp.needle_ids))
-                    hits_dev.append(ncc_replay(inv_dev, pos, d_off, d_hcnt, dg.bank, dg.s_n,
-                                               dg.s2_n, thr_f64, y0, x0, MAX_MATCHES))
+                    hits_dev.append(ncc_replay(inv_dev, pos, d_off, d_hcnt, dg.replay, thr_f64,
+                                               y0, x0, MAX_MATCHES))
                     del pos
                     if measure is not None:
                         if cuda:

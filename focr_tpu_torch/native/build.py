@@ -151,8 +151,8 @@ def load() -> ctypes.CDLL:
     lib.focr_ncc_compact_count.restype = i
     lib.focr_ncc_compact.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
     lib.focr_ncc_compact.restype = i
-    lib.focr_ncc_replay.argtypes = [p, i, i, i, p, p, p, i, p, i, i, p, p, ctypes.c_double, i,
-                                    i, i, ctypes.c_longlong, p, p, p, p, p, p]
+    lib.focr_ncc_replay.argtypes = [p, i, i, i, p, ctypes.c_longlong, p, p, p, i, i,
+                                    ctypes.c_double, i, i, ctypes.c_longlong, p, p]
     lib.focr_ncc_replay.restype = i
     lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i, i, i, p, p, p, p]
     lib.focr_ssd_argmin.restype = i

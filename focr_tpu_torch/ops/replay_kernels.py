@@ -10,15 +10,24 @@ yardstick the tests and chip_smoke.py hold K3 against): the same op order,
 MAX_MATCHES cap and WARN condition, on crop-local positions, with the hits'
 coordinates written for the full page.
 
-The wrapper ``ncc_replay`` runs the plain version for tensors on the CPU and
-launches the kernel for tensors on a CUDA card; there is no fallback between
-the two. It counts its launches in ``LAUNCHES``. Its output is one uint8
-buffer, read through ``split_replay``: x, y (i32) and sim (f32) sized like
-the positions — segment (page b, needle t)'s hits at that segment's own
-candidate offset, in scan order — then counts (i32) and warn (u8) [B, T].
+A size group's needles are checked once, where its device group is built
+(``replay_needles``); a call checks only the page crop, the positions and
+K2's counts. The wrapper ``ncc_replay`` runs the plain version for tensors on
+the CPU and launches the kernel for tensors on a CUDA card; there is no
+fallback between the two. ``replay_plan`` picks the kernel's instance (one
+compiled for each needle width 4..16, one generic) from the needles' width;
+a (page, needle) segment always gets WARPS warps. The wrapper counts its launches
+in ``LAUNCHES``. Its output is one uint8 buffer, read through
+``split_replay``: x, y (i32) and sim (f32) sized like the positions —
+segment (page b, needle t)'s hits at that segment's own candidate offset, in
+scan order — then counts (i32) and warn (u8) [B, T]; the kernel's launcher
+places them itself.
 """
 
 from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -26,6 +35,13 @@ from focr_tpu_torch.ops.ncc import word_stride
 from focr_tpu_torch.utils.device import count_launch, launch_stream
 
 LAUNCHES = {"ncc_replay": 0}
+
+# the warps of a (page, needle) segment's block: the fastest count on the
+# canonical ncc wave (tools/torch_cli_profile.py replay-warps sweeps 1 to
+# MAX_WARPS, csrc/ncc_replay.cu's RMAXW); any count gives the same output
+WARPS = 3
+MAX_WARPS = 8
+WIDTHS = range(4, 17)  # the needle widths with an instance of their own
 
 
 def reset_launches() -> None:
@@ -66,24 +82,11 @@ def replay_hits(buf: torch.Tensor, off: torch.Tensor, hcnt: torch.Tensor):
 
 
 def _check(imgs, pos, off, hcnt, bank, s_n, s2_n) -> tuple[int, ...]:
-    if imgs.dim() != 3 or bank.dim() != 3:
-        raise ValueError("ncc_replay: imgs [B, Hc, Wc] and bank [T, nh, nw] expected")
-    B, Hc, Wc = imgs.shape
-    T, nh, nw = bank.shape
-    if nh * nw * 65025 >= 2**31:
-        raise ValueError(f"ncc_replay: a needle of {nh * nw} pixels is past the sweep's bound "
-                         "n*65025 < 2^31")
-    for name, t, dt, shape in (
-        ("imgs", imgs, torch.uint8, None), ("pos", pos, torch.int32, (pos.numel(),)),
-        ("off", off, torch.int64, (B + 1,)), ("hcnt", hcnt, torch.int32, (B, T)),
-        ("bank", bank, torch.uint8, None), ("s_n", s_n, torch.int64, (T,)),
-        ("s2_n", s2_n, torch.int64, (T,)),
-    ):
-        if t.dtype != dt or not t.is_contiguous() or t.device != imgs.device or (
-                shape is not None and tuple(t.shape) != shape):
-            raise ValueError(f"ncc_replay: {name} must be contiguous {dt}"
-                             f"{list(shape) if shape else ''} on {imgs.device}")
-    return B, Hc, Wc, T, nh, nw
+    """The plain version's check of all seven tensors: (B, Hc, Wc, T, nh,
+    nw)."""
+    nd = replay_needles(bank, s_n, s2_n)
+    _check_call(imgs, pos, off, hcnt, nd)
+    return (*imgs.shape, nd.T, nd.nh, nd.nw)
 
 
 def ncc_replay_reference(
@@ -161,34 +164,108 @@ def ncc_replay_reference(
     return buf
 
 
+def replay_plan(nw: int) -> int:
+    """K3's instance for needles ``nw`` pixels wide: nw for the widths
+    compiled on their own (WIDTHS), 0 for the generic one."""
+    return nw if nw in WIDTHS else 0
+
+
+class _NeedleArgs(ctypes.Structure):
+    """csrc/ncc_replay.cu's FocrReplayNeedles."""
+
+    _fields_ = [("bank", ctypes.c_void_p), ("s_n", ctypes.c_void_p), ("s2_n", ctypes.c_void_p),
+                ("T", ctypes.c_int), ("nh", ctypes.c_int), ("nw", ctypes.c_int)]
+
+
+@dataclass(frozen=True, eq=False)
+class ReplayNeedles:
+    """One size group's needles as K3 takes them, checked once
+    (``replay_needles``): bank u8 [T, nh, nw], s_n and s2_n i64 [T], on one
+    device; on a card also the launcher's argument block, built here."""
+
+    bank: torch.Tensor
+    s_n: torch.Tensor
+    s2_n: torch.Tensor
+    T: int
+    nh: int
+    nw: int
+    args: _NeedleArgs | None  # a card only
+    addr: int  # the argument block's address (0 off a card)
+
+
+def replay_needles(bank: torch.Tensor, s_n: torch.Tensor, s2_n: torch.Tensor) -> ReplayNeedles:
+    """Check a size group's needles for K3 once (where the ncc device group
+    is built): raises ValueError on a wrong type, shape, layout or device, or
+    a needle past the sweep's bound n·65025 < 2³¹."""
+    if bank.dim() != 3:
+        raise ValueError("ncc_replay: bank [T, nh, nw] expected")
+    T, nh, nw = bank.shape
+    if nh * nw * 65025 >= 2**31:
+        raise ValueError(f"ncc_replay: a needle of {nh * nw} pixels is past the sweep's bound "
+                         "n*65025 < 2^31")
+    for name, t, dt, shape in (("bank", bank, torch.uint8, None), ("s_n", s_n, torch.int64, (T,)),
+                               ("s2_n", s2_n, torch.int64, (T,))):
+        if t.dtype != dt or not t.is_contiguous() or t.device != bank.device or (
+                shape is not None and tuple(t.shape) != shape):
+            raise ValueError(f"ncc_replay: {name} must be contiguous {dt}"
+                             f"{list(shape) if shape else ''} on {bank.device}")
+    args = None
+    if bank.device.type == "cuda":
+        args = _NeedleArgs(bank.data_ptr(), s_n.data_ptr(), s2_n.data_ptr(), T, nh, nw)
+    return ReplayNeedles(bank, s_n, s2_n, T, nh, nw, args,
+                         ctypes.addressof(args) if args is not None else 0)
+
+
+def _check_call(imgs, pos, off, hcnt, nd: ReplayNeedles) -> None:
+    """What a call checks: the crop, the positions and K2's counts (the
+    needles were checked when ``nd`` was made)."""
+    dev = nd.bank.get_device()
+    if (imgs.dtype != torch.uint8 or imgs.dim() != 3 or not imgs.is_contiguous()
+            or imgs.get_device() != dev):
+        raise ValueError(f"ncc_replay: imgs must be a contiguous uint8 [B, Hc, Wc] on "
+                         f"{nd.bank.device}")
+    B = imgs.shape[0]
+    for name, t, dt, shape in (("pos", pos, torch.int32, (pos.numel(),)),
+                               ("off", off, torch.int64, (B + 1,)),
+                               ("hcnt", hcnt, torch.int32, (B, nd.T))):
+        if (t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.get_device() != dev):
+            raise ValueError(f"ncc_replay: {name} must be contiguous {dt}{list(shape)} on "
+                             f"{imgs.device}")
+
+
+_launcher = None  # the library's focr_ncc_replay, bound at the first launch
+
+
 def ncc_replay(
     imgs: torch.Tensor, pos: torch.Tensor, off: torch.Tensor, hcnt: torch.Tensor,
-    bank: torch.Tensor, s_n: torch.Tensor, s2_n: torch.Tensor, thr_f64: float,
-    cy0: int, cx0: int, max_matches: int,
+    needles: ReplayNeedles, thr_f64: float, cy0: int, cx0: int, max_matches: int,
 ) -> torch.Tensor:
     """K3 (csrc/ncc_replay.cu) for CUDA tensors, ncc_replay_reference for CPU
     tensors; one launch per call, on the current stream, with no wait: the
     buffer is sized by the exact candidate count the caller already has."""
-    if imgs.device.type == "cpu":
-        return ncc_replay_reference(imgs, pos, off, hcnt, bank, s_n, s2_n, thr_f64, cy0, cx0,
-                                    max_matches)
-    if imgs.device.type != "cuda":
-        raise ValueError(f"ncc_replay: unsupported device {imgs.device}")
-    B, Hc, Wc, T, nh, nw = _check(imgs, pos, off, hcnt, bank, s_n, s2_n)
-    total = pos.numel()
-    buf = torch.empty(replay_nbytes(total, B, T), dtype=torch.uint8, device=imgs.device)
-    if B * T:
-        out_x, out_y, out_sim, counts, warn = split_replay(buf, total, B, T)
-        from focr_tpu_torch.native.build import load
+    global _launcher
+    dev = imgs.device
+    if dev.type == "cpu":
+        return ncc_replay_reference(imgs, pos, off, hcnt, needles.bank, needles.s_n,
+                                    needles.s2_n, thr_f64, cy0, cx0, max_matches)
+    if dev.type != "cuda":
+        raise ValueError(f"ncc_replay: unsupported device {dev}")
+    _check_call(imgs, pos, off, hcnt, needles)
+    if imgs.data_ptr() % 4:  # the kernel reads the crop a word at a time
+        raise ValueError("ncc_replay: imgs must start at a 4-byte boundary")
+    B, Hc, Wc = imgs.shape
+    total = pos.shape[0]
+    buf = torch.empty(replay_nbytes(total, B, needles.T), dtype=torch.uint8, device=dev)
+    if B * needles.T:
+        if _launcher is None:
+            from focr_tpu_torch.native.build import load
 
+            _launcher = load().focr_ncc_replay
         with launch_stream(imgs) as stream:
-            rc = load().focr_ncc_replay(
-                imgs.data_ptr(), B, Hc, Wc, pos.data_ptr(), off.data_ptr(), hcnt.data_ptr(), T,
-                bank.data_ptr(), nh, nw, s_n.data_ptr(), s2_n.data_ptr(), float(thr_f64),
-                word_stride(Wc, nw) * 32, int(cy0), int(cx0), int(max_matches),
-                out_x.data_ptr(), out_y.data_ptr(), out_sim.data_ptr(), counts.data_ptr(),
-                warn.data_ptr(), stream,
-            )
+            rc = _launcher(imgs.data_ptr(), B, Hc, Wc, pos.data_ptr(), total, off.data_ptr(),
+                           hcnt.data_ptr(), needles.addr, replay_plan(needles.nw), WARPS,
+                           thr_f64, cy0, cx0, max_matches, buf.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"ncc_replay kernel launch failed: CUDA error {rc}")
         count_launch(LAUNCHES, "ncc_replay")

@@ -58,12 +58,14 @@ def launch_stream(t: torch.Tensor):
     wrapper records), and the raw handle of the current stream on that card
     is yielded for the launcher's ``stream`` argument. With the slots of a
     mesh on several cards the caller's current device is whichever it touched
-    last, so nothing may rely on it."""
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream()
-        if stream.device != t.device:
-            raise RuntimeError(f"the current stream is on {stream.device}, the tensors on {t.device}")
-        yield stream.cuda_stream
+    last, so nothing may rely on it. Where ``t``'s card is current already
+    (one card: every call), nothing is switched."""
+    idx = t.get_device()
+    if torch.cuda.current_device() == idx:
+        yield torch.cuda.current_stream(idx).cuda_stream
+        return
+    with torch.cuda.device(idx):
+        yield torch.cuda.current_stream(idx).cuda_stream
 
 
 @contextlib.contextmanager

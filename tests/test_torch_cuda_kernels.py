@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from focr_tpu_torch.ops import ncc_kernels, prop_kernels, replay_kernels, ssd_kernels
+import replay_cases  # tests/replay_cases.py, beside this file
 
 pytestmark = pytest.mark.cuda
 
@@ -103,18 +104,46 @@ def test_replay_matches_plain_version(cuda, case, max_matches):
                                 for a in _inputs(B, H, W, T, nh, nw, seed, density))
     mask, rcnt = ncc_kernels.ncc_sweep(imgs, needles, s_n, s2_n, thr)
     pos, off, hcnt, _ = ncc_kernels.compact_hits(mask, rcnt)
-    args = (imgs, pos, off, hcnt, needles, s_n, s2_n, float(np.float32(thr)), 3, 5, max_matches)
+    tail = (float(np.float32(thr)), 3, 5, max_matches)
+    nd = replay_kernels.replay_needles(needles, s_n, s2_n)
+    want = replay_kernels.replay_hits(
+        replay_kernels.ncc_replay_reference(imgs, pos, off, hcnt, needles, s_n, s2_n, *tail),
+        off, hcnt)
     replay_kernels.reset_launches()
-    got = replay_kernels.replay_hits(replay_kernels.ncc_replay(*args), off, hcnt)
+    got = replay_kernels.replay_hits(
+        replay_kernels.ncc_replay(imgs, pos, off, hcnt, nd, *tail), off, hcnt)
     torch.cuda.synchronize()
     assert replay_kernels.LAUNCHES == {"ncc_replay": 1}
-    want = replay_kernels.replay_hits(replay_kernels.ncc_replay_reference(*args), off, hcnt)
+    _assert_bits_equal(got, want)
+    if max_matches == 3:  # a needle warns exactly when it reaches the cap
+        assert torch.equal(got[4].bool(), got[3] == 3)
+
+
+def _assert_bits_equal(got, want):
     for a, b in zip(got, want, strict=True):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert a.dtype == b.dtype and torch.equal(a, b)
-    if max_matches == 3:  # a needle warns exactly when it reaches the cap
-        assert torch.equal(got[4].bool(), got[3] == 3)
+
+
+@pytest.mark.parametrize("max_matches", [1024, 33, 32, 5])
+@pytest.mark.parametrize("nw", replay_cases.EDGE_WIDTHS)
+def test_replay_edge_cases(cuda, nw, max_matches):
+    """K3 on tests/replay_cases.py's design cases (segments of 0 to 769
+    candidates, over several rounds of a block's warps; caps across a step of
+    32; a window on the crop's last byte; each instance kind) against its
+    plain version."""
+    case = replay_cases.replay_case(nw, seed=nw)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items() if isinstance(v, np.ndarray)}
+    args = (t["imgs"], t["pos"], t["off"], t["hcnt"])
+    tail = (case["thr_f64"], 2, 3, max_matches)
+    want = replay_kernels.replay_hits(replay_kernels.ncc_replay_reference(
+        *args, t["bank"], t["s_n"], t["s2_n"], *tail), t["off"], t["hcnt"])
+    nd = replay_kernels.replay_needles(t["bank"], t["s_n"], t["s2_n"])
+    got = replay_kernels.replay_hits(replay_kernels.ncc_replay(*args, nd, *tail),
+                                     t["off"], t["hcnt"])
+    torch.cuda.synchronize()
+    _assert_bits_equal(got, want)
 
 
 @pytest.mark.parametrize("case", ["no-candidates", "blank-page", "dense", "many-chunks"])

@@ -122,8 +122,8 @@ def _check_against_host(tm, pages, max_matches=MAX_MATCHES, thr_f64=None, crop=T
     keys = []
     for grp, dg, inv, crop_, inv_c, pos, off, hcnt in _wave(tm, pages, crop):
         y0, x0 = crop_[:2]
-        buf = replay_kernels.ncc_replay(inv_c, pos, off, hcnt, dg.bank, dg.s_n, dg.s2_n, thr,
-                                        y0, x0, max_matches)
+        buf = replay_kernels.ncc_replay(inv_c, pos, off, hcnt, dg.replay, thr, y0, x0,
+                                        max_matches)
         got = _k3_keys(buf, off, hcnt)
         for b in range(len(pages)):
             data = (pos[off[b] : off[b + 1]].numpy(), hcnt[b].numpy())
@@ -174,8 +174,8 @@ def test_threshold_at_a_candidates_exact_sim(mono_font_path):
     tm, pages = _text_matcher(mono_font_path, threshold=0.5)
     grp, dg, inv, (y0, x0, _, _), inv_c, pos, off, hcnt = _wave(tm, pages)[0]
     # the similarity of needle 0's first hit on page 0, computed here exactly
-    buf = replay_kernels.ncc_replay(inv_c, pos, off, hcnt, dg.bank, dg.s_n, dg.s2_n,
-                                    float(np.float32(0.5)), y0, x0, MAX_MATCHES)
+    buf = replay_kernels.ncc_replay(inv_c, pos, off, hcnt, dg.replay, float(np.float32(0.5)),
+                                    y0, x0, MAX_MATCHES)
     x, y, *_ = replay_kernels.split_replay(buf, len(pos), *hcnt.shape)
     t = int(np.flatnonzero(hcnt[0].numpy())[0])
     start = int(off[0]) + int(hcnt[0, :t].sum())
@@ -275,8 +275,9 @@ def test_wrapper_raises_on_other_devices():
     args = (torch.empty((1, 20, 30), dtype=torch.uint8, **meta),
             torch.empty(0, dtype=torch.int32, **meta), torch.empty(2, dtype=torch.int64, **meta),
             torch.empty((1, 2), dtype=torch.int32, **meta),
-            torch.empty((2, 5, 4), dtype=torch.uint8, **meta),
-            torch.empty(2, dtype=torch.int64, **meta), torch.empty(2, dtype=torch.int64, **meta))
+            replay_kernels.replay_needles(torch.empty((2, 5, 4), dtype=torch.uint8, **meta),
+                                          torch.empty(2, dtype=torch.int64, **meta),
+                                          torch.empty(2, dtype=torch.int64, **meta)))
     with pytest.raises(ValueError, match="unsupported device meta"):
         replay_kernels.ncc_replay(*args, 0.5, 0, 0, MAX_MATCHES)
     replay_kernels.reset_launches()
@@ -284,18 +285,23 @@ def test_wrapper_raises_on_other_devices():
 
 
 def test_wrapper_checks_its_arguments():
-    """Wrong types or shapes raise before anything runs."""
+    """Wrong types or shapes raise before anything runs: the needles when
+    they are checked (once, where the device group is built), the rest at
+    the call."""
     imgs = torch.zeros((2, 20, 30), dtype=torch.uint8)
     bank = torch.zeros((3, 5, 4), dtype=torch.uint8)
     s = torch.zeros(3, dtype=torch.int64)
     pos = torch.zeros(0, dtype=torch.int32)
     off = torch.zeros(3, dtype=torch.int64)
     hcnt = torch.zeros((2, 3), dtype=torch.int32)
-    buf = replay_kernels.ncc_replay(imgs, pos, off, hcnt, bank, s, s, 0.5, 0, 0, 4)
+    buf = replay_kernels.ncc_replay(imgs, pos, off, hcnt,
+                                    replay_kernels.replay_needles(bank, s, s), 0.5, 0, 0, 4)
     assert buf.numel() == replay_kernels.replay_nbytes(0, 2, 3)
     for bad in (dict(pos=pos.to(torch.int64)), dict(hcnt=hcnt[:1]), dict(off=off[:2]),
                 dict(bank=bank.to(torch.int32))):
         a = dict(imgs=imgs, pos=pos, off=off, hcnt=hcnt, bank=bank, s_n=s, s2_n=s)
         a.update(bad)
         with pytest.raises(ValueError, match="ncc_replay"):
-            replay_kernels.ncc_replay(*a.values(), 0.5, 0, 0, 4)
+            replay_kernels.ncc_replay(
+                a["imgs"], a["pos"], a["off"], a["hcnt"],
+                replay_kernels.replay_needles(a["bank"], a["s_n"], a["s2_n"]), 0.5, 0, 0, 4)

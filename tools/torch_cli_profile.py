@@ -4,7 +4,8 @@ the repo, in turns.
 
     python tools/torch_cli_profile.py profile [--runs N]            # stage tables
     python tools/torch_cli_profile.py compare OTHER_ROOT [--runs N] # pages/s in turns
-    python tools/torch_cli_profile.py kernels OTHER_ROOT            # K1, K2, K4 in turns
+    python tools/torch_cli_profile.py kernels OTHER_ROOT            # K1-K4 in turns
+    python tools/torch_cli_profile.py replay-warps                  # K3 by warps a segment
     python tools/torch_cli_profile.py pool [depth] [--runs N]       # ncc pool and depth settings
     python tools/torch_cli_profile.py summary OUTPUT_FILE           # medians of a run's lines
     python tools/torch_cli_profile.py pool-summary OUTPUT_FILE      # a pool run by setting
@@ -34,14 +35,21 @@ compare — runs ``time`` in a fresh process for OTHER_ROOT, this root, this
     pipeline), and prints each process's pages/s. OTHER_ROOT is a checkout
     of the package (``git archive`` of a commit, or a variant's copy under
     ``_checkout/``), imported in place of this one.
-kernels — the same turns, each process timing K1 and K2 (``compact_hits``:
-    everything the main path runs between K1 and the positions) at the ncc
+kernels — the same turns, each process timing K1, K2 (``compact_hits``:
+    everything the main path runs between K1 and the positions) and K3 (the
+    call, and its device time from a torch.profiler trace) at the ncc
     main path's shapes — the first wave of the ncc fixture, inverted and
     ink-cropped as the matcher does, against both needle groups — and K4 on
     the focr fixture's 16 pages cropped as the decoder crops them (each held
     bit for bit against its plain version first; the best of 5 means of 20
     calls, CUDA events). Each process builds its kernels with the register
     report (stderr).
+replay-warps — K3's device time (torch.profiler, 20 calls) on the same ncc
+    wave at 1 to ``replay_kernels.MAX_WARPS`` warps a (page, needle) segment,
+    each count's output first held bit for bit against the plain version;
+    with the segments' candidates (p50, p99, max) by needle group. The
+    wrapper gives every segment ``replay_kernels.WARPS``; this is the sweep
+    behind that constant.
 pool — the ncc CLI's pages/s at 16 and at 64 pages (the fixture's pages four
     times: eight waves) under each of POOL_SETTINGS (collect threads, the
     pipeline's depth), in four turns whose order rotates and alternates
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import cProfile
+import importlib.util
 import io
 import json
 import os
@@ -246,13 +255,52 @@ def _best_ms(fn, per: int) -> float:
     return best
 
 
-def time_kernels(root: str) -> None:
-    """K1's and K2's ms/page per needle group and K4's per row group for the
-    checkout at ``root``."""
+def _device_ms(fn, kernel: str, per: int) -> float:
+    """ms per ``per`` pages of device time of the kernels whose name holds
+    ``kernel``, from a torch.profiler trace of 20 calls."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / 20 / per
+
+
+def _ncc_wave():
+    """The ncc fixture's first wave as the matcher hands it to K1, inverted
+    and ink-cropped, on the card: (pages [B, Hc, Wc], needle groups, y0,
+    x0)."""
     import numpy as np
     import torch
 
-    from focr_tpu_torch.fonts.bank import load_grid_bank, load_needle_bank
+    from focr_tpu_torch.fonts.bank import load_needle_bank
+    from focr_tpu_torch.models import ncc as ncc_model
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    with np.load(_fixture("ncc"), allow_pickle=False) as z:
+        pages = z["pages"][: ncc_model.WAVE]
+    inv = (255 - pages.astype(np.int16)).astype(np.uint8)
+    groups = ncc_model._group_needles(load_needle_bank(_fixture("ncc"))[0])
+    y0, x0, Hc, Wc = ncc_model._ink_crop(inv, *inv.shape[1:], groups)
+    x = torch.from_numpy(np.ascontiguousarray(inv[:, y0 : y0 + Hc, x0 : x0 + Wc])).cuda()
+    return x, groups, y0, x0
+
+
+def time_kernels(root: str) -> None:
+    """K1's, K2's and K3's ms/page per needle group and K4's per row group
+    for the checkout at ``root``."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.fonts.bank import load_grid_bank
     from focr_tpu_torch.models import focr as focr_model
     from focr_tpu_torch.models import ncc as ncc_model
     from focr_tpu_torch.models.types import DecodeOptions, RenderOptions
@@ -260,15 +308,9 @@ def time_kernels(root: str) -> None:
     from focr_tpu_torch.ops import ncc_kernels as K
     from focr_tpu_torch.ops import ssd_kernels as S
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("needs a CUDA card")
     build.build(report=True)
-    with np.load(_fixture("ncc"), allow_pickle=False) as z:
-        pages = z["pages"][: ncc_model.WAVE]
-    inv = (255 - pages.astype(np.int16)).astype(np.uint8)
-    groups = ncc_model._group_needles(load_needle_bank(_fixture("ncc"))[0])
-    y0, x0, Hc, Wc = ncc_model._ink_crop(inv, *inv.shape[1:], groups)
-    x = torch.from_numpy(np.ascontiguousarray(inv[:, y0 : y0 + Hc, x0 : x0 + Wc])).cuda()
+    x, groups, y0, x0 = _ncc_wave()
+    B = x.shape[0]
     out = {"root": root}
     for g in groups:
         dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, 0.8, x.device)
@@ -281,15 +323,24 @@ def time_kernels(root: str) -> None:
                                                     K.compact_hits_reference(mask, rcnt))):
             raise AssertionError(f"K2 differs from its plain version ({g.nw}x{g.nh})")
         name = f"{g.nw}x{g.nh}"
-        out[f"k1_{name}"] = _best_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag),
-                                     len(pages))
-        out[f"k2_{name}"] = _best_ms(lambda: K.compact_hits(mask, rcnt), len(pages))
+        out[f"k1_{name}"] = _best_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag), B)
+        out[f"k2_{name}"] = _best_ms(lambda: K.compact_hits(mask, rcnt), B)
         if hasattr(K, "compact_counts"):  # K2's two kernels alone, without the wait
             row_off, head = K.compact_counts(rcnt)
             total = int(K.split_counts(head.cpu(), *rcnt.shape[:2])[0][-1])
-            out[f"k2count_{name}"] = _best_ms(lambda: K.compact_counts(rcnt), len(pages))
-            out[f"k2emit_{name}"] = _best_ms(
-                lambda: K.compact_emit(mask, rcnt, row_off, total), len(pages))
+            out[f"k2count_{name}"] = _best_ms(lambda: K.compact_counts(rcnt), B)
+            out[f"k2emit_{name}"] = _best_ms(lambda: K.compact_emit(mask, rcnt, row_off, total), B)
+        if importlib.util.find_spec("focr_tpu_torch.ops.replay_kernels"):  # a checkout with K3
+            from focr_tpu_torch.ops import replay_kernels as R
+
+            pos, off, hcnt, _ = K.compact_hits(mask, rcnt)
+            tail = (float(np.float32(0.8)), y0, x0, 1024)
+            if hasattr(R, "replay_needles"):  # the needles checked once
+                k3 = (x, pos, off, hcnt, dg.replay, *tail)
+            else:
+                k3 = (x, pos, off, hcnt, dg.bank, dg.s_n, dg.s2_n, *tail)
+            out[f"k3_{name}"] = _best_ms(lambda: R.ncc_replay(*k3), B)
+            out[f"k3dev_{name}"] = _device_ms(lambda: R.ncc_replay(*k3), "focr_ncc_replay", B)
     banks, settings = load_grid_bank(_fixture("focr"))
     with np.load(_fixture("focr"), allow_pickle=False) as z:
         fpages = z["pages"]
@@ -304,8 +355,49 @@ def time_kernels(root: str) -> None:
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"K4 differs from its plain version (h={grp.crop_h})")
         out[f"k4_h{grp.crop_h}"] = _best_ms(lambda: fwd(strips), len(fpages))
-    for k in ("k1", "k2", "k2count", "k2emit", "k4"):
+    for k in ("k1", "k2", "k2count", "k2emit", "k3", "k3dev", "k4"):
         out[f"{k}_total"] = sum(v for n, v in out.items() if n.startswith(f"{k}_"))
+    out["card"] = _card()
+    print(json.dumps(out), flush=True)
+
+
+def replay_warps() -> None:
+    """K3's device ms/page on the ncc wave by the warps a segment gets."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.ops import ncc_kernels as K
+    from focr_tpu_torch.ops import replay_kernels as R
+
+    x, groups, y0, x0 = _ncc_wave()
+    out = {"warps": R.WARPS, "segments": {}, "device_ms_by_warps": {}}
+    kept = R.WARPS
+    try:
+        for g in groups:
+            dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, 0.8, x.device)
+            mask, rcnt = K.ncc_sweep(x, dg.bank, dg.s_n, dg.s2_n, 0.8, terms=dg.terms,
+                                     afrag=dg.afrag)
+            pos, off, hcnt, _ = K.compact_hits(mask, rcnt)
+            tail = (float(np.float32(0.8)), y0, x0, 1024)
+            want = R.replay_hits(R.ncc_replay_reference(
+                x, pos, off, hcnt, dg.bank, dg.s_n, dg.s2_n, *tail), off, hcnt)
+            name = f"{g.nw}x{g.nh}"
+            lens = hcnt.cpu().numpy()
+            out["segments"][name] = {k: float(np.percentile(lens, q))
+                                     for k, q in (("p50", 50), ("p99", 99), ("max", 100))}
+            by = out["device_ms_by_warps"][name] = {}
+            for w in range(1, R.MAX_WARPS + 1):
+                R.WARPS = w
+                got = R.replay_hits(R.ncc_replay(x, pos, off, hcnt, dg.replay, *tail), off, hcnt)
+                if not all(torch.equal(*(v.view(torch.int32) if v.dtype == torch.float32 else v
+                                         for v in ab)) for ab in zip(got, want)):
+                    raise AssertionError(f"K3 at {w} warps differs from its plain version "
+                                         f"({name})")
+                by[w] = _device_ms(lambda: R.ncc_replay(x, pos, off, hcnt, dg.replay, *tail),
+                                   "focr_ncc_replay", x.shape[0])
+    finally:
+        R.WARPS = kept
     out["card"] = _card()
     print(json.dumps(out), flush=True)
 
@@ -478,6 +570,9 @@ def main() -> int:
             pool(tuple(s for s in POOL_SETTINGS if s[0] == kept), 2 * POOL_TURNS)
         else:
             pool()
+    elif mode == "replay-warps":
+        sys.path.insert(0, HERE)
+        replay_warps()
     elif mode in ("compare", "kernels"):
         compare(os.path.abspath(sys.argv[2]), "time" if mode == "compare" else "kernels-time")
     else:
