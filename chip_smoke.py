@@ -118,19 +118,25 @@ Phases, each of which raises on failure:
                {"overlays": "no FreeType on this machine"}
  17. mesh-kernels — the glyph axis' two kernels on the focr corpus' bank cut
                into 2 and into 4 glyph slices (parallel/decode.py::
-               shard_grid_bank: 67 glyphs pad to 68 with a copy of glyph 0):
-               K4p (ssd_argmin_partial) on every slice against its plain
-               version (ids, val and white bit-identical), called with the
-               slice's packed templates as the mesh path calls it, on the
-               corpus wave, on noise and white pages and on the 8-page block
-               a slot of a 2x2 mesh is given (the shape that is timed); K6 (first_min_combine) against
-               its plain version on the gathered partials and on adversarial
-               ties (equal val in every shard, the minimum in the last shard,
-               values past 2^53); the combined ids against unsharded K4's;
-               both timed with CUDA events at the shapes a 2x2 mesh gives
-               them (blocks of 8 pages), with their device time from a
-               torch.profiler trace beside it (the calls are host-bound), and
-               K4p's int64 instance on a 1x34000 window
+               shard_grid_bank: 67 glyphs pad to 68 with a copy of glyph 0),
+               each slice checked once as the mesh path builds it
+               (ops/ssd_kernels.py::shard_bank): K4p (ssd_argmin_partial) on
+               every slice against its plain version (the packed keys and,
+               from the first slice only, the white flags, bit-identical) on
+               the corpus wave, on noise and white pages and on the 8-page
+               block a slot of a 2x2 mesh is given (the shape that is timed);
+               K6 (first_min_combine) on the slices' keys where they lie
+               against its plain version, and on adversarial keys at 2, 4 and
+               8 shards (equal metrics in every shard, the minimum in the last
+               shard, padded copies of glyph 0, the metric's ends with glyphs
+               up to 2^28 - 1, few distinct values); the combined ids against
+               unsharded K4's; K4p's int64 instance on a 1x34000 window; then
+               both timed at the shapes a 2x2 mesh gives them (blocks of 8
+               pages): the call with CUDA events, device time from a
+               torch.profiler trace (the calls are host-bound), each wrapper's
+               host us a call (200 calls, one sync), the plain versions, and
+               for K6 torch.amin of the stacked keys over the shard axis (one
+               call that computes K6's function but for the final mask)
  18. mesh-paths — the three CLIs in-process over four slots,
                FOCR_TORCH_MESH_DEVICES=cuda:0 four times (each slot its own
                stream), and over the physical cards as well when more than one
@@ -169,8 +175,8 @@ larger of its operations (2 per multiply-add, over the ink crop for K1, the
 steps taken for K5 and the candidates' windows for K3) over the H100's int8
 tensor-core peak and its bytes
 (inputs read once, outputs written once) over the memory rate — with
-bound_by, and library_ms (null: no single PyTorch call computes any of these
-functions). K1's entry carries its wide instance's numbers as wide_*; K2's
+bound_by, and library_ms (null but for K6: no single PyTorch call computes
+the other functions). K1's entry carries its wide instance's numbers as wide_*; K2's
 (whose bytes are the mask rows that hold candidates, the row counts and its
 outputs) its count kernel's launches, each of its two kernels' ms alone, and
 the device stage's host waits a wave; K4's the instance the main path takes;
@@ -178,10 +184,12 @@ K3's its device time, the host replay's ms per page (host_replay_ms), the
 wrapper's host µs a call, the warps a segment gets and the segments'
 candidates.
 K4p's and K6's launches are those of phase 18's focr run at 2 glyph shards on
-four slots; their ms are per page of a slot's block, with the numbers at 4
-glyph shards under "by_glyph_shards". The line also carries phase 18's
-pages/s under "mesh" (every entry names its slots and the number of physical
-cards under them).
+four slots; their ms are per page of a slot's block and per launch (K4p: a
+glyph row's calls divided by its shards), with each wrapper's host µs a call,
+K6's library_ms (torch.amin of the stacked keys), K4p's cells a block
+("warps") and the numbers at 4 glyph shards under "by_glyph_shards". The
+line also carries phase 18's pages/s under "mesh" (every entry names its
+slots and the number of physical cards under them).
 """
 
 from __future__ import annotations
@@ -228,10 +236,14 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str, per_call: int = 1) -> float:
     """Mean ms of device time per call of the kernels whose name holds
-    ``kernel``, from a torch.profiler trace of ``reps`` calls: what a call
-    costs the card, where cuda_ms times a call that the host bounds."""
+    ``kernel``, from a torch.profiler trace of ``reps`` calls, each launching
+    ``per_call`` of them: what a call costs the card, where cuda_ms times a
+    call that the host bounds. torch.profiler has been seen to leave kernels
+    out of a trace (2 of 20, trace after trace), so the time is the mean of
+    the kernels the trace holds times ``per_call``, and the log says when
+    some were missing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -241,12 +253,17 @@ def device_ms(fn, reps: int, kernel: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
     # the attribute's name differs between torch versions
-    durs = [getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-            for e in prof.key_averages() if kernel in e.key]
-    if not durs or sum(durs) <= 0:
+    total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                for e in evs)
+    n = sum(e.count for e in evs)
+    if not n or total <= 0:
         raise AssertionError(f"the trace holds no device time of a kernel named {kernel}")
-    return sum(durs) / 1e3 / reps
+    if n != reps * per_call:
+        log(f"[device-time] {kernel}: the trace holds {n} of the {reps * per_call} kernels "
+            "launched; the mean of those is used")
+    return total / n * per_call / 1e3
 
 
 # the H100 SXM's published dense int8 tensor-core rate and memory rate (NVIDIA's
@@ -1179,6 +1196,21 @@ def overlays_phase(cases: dict) -> str | None:
     return None
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """A wrapper's host µs a call: ``reps`` calls with one sync at the end,
+    timed on the host clock up to the last call's return."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps / 1e3
+
+
 def mesh_kernels_phase(dev, card: str) -> tuple[dict, dict]:
     """Phase 17: K4p and K6 against their plain versions. Returns their
     kernels entries (launches filled in by phase 18)."""
@@ -1202,116 +1234,154 @@ def mesh_kernels_phase(dev, card: str) -> tuple[dict, dict]:
     noise[2:] = 255  # white pages: every glyph's metric is its tsq, the emptiest glyph wins
     up = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)  # noqa: E731
 
-    def partials(strips_d, wx0_d, slices):
-        """K4p on every slice, called as the mesh path calls it (the slice's
-        bfrag packed beforehand, as StripForward holds it), against its plain
-        version. Returns the error, the stacked (val, slice-local id) and the
-        last slice's arguments and bfrag."""
-        _, _, h, crop_w = strips_d.shape
-        mma = S.ssd_plan(h, crop_w, slices[0][0].shape[3])[0] == "mma"
-        e, vals, lids = 0, [], []
-        for tmpl, tsq in slices:
-            args = (strips_d, up(tmpl), up(tsq.astype(np.int64)), wx0_d)
-            bfrag = S.pack_template_fragments(args[1]) if mma else None
-            ids, val, white = S.ssd_argmin_partial(*args, bfrag=bfrag)
-            ids_r, val_r, white_r = S.ssd_argmin_partial_reference(*args)
-            torch.cuda.synchronize()
-            e = max(e, max_abs_err(ids, ids_r), max_abs_err(val, val_r),
-                    max_abs_err(white.to(torch.int32), white_r.to(torch.int32)))
-            vals.append(val), lids.append(ids)
-        return e, torch.stack(vals), torch.stack(lids), args, bfrag
-
-    def checked(strips_d, wx0_d, slices, full_args, n_glyphs, what):
-        """K4p and K6 against their plain versions and the combined ids
-        against unsharded K4's, folded into ``err``; raises on a difference.
-        Returns partials' tensors for the timing."""
+    def shard_banks(slices, wx0_d, crop_w):
+        """Every slice's ShardBank, as the mesh path builds them: its first
+        glyph's bank number, its templates packed once."""
         Gl = slices[0][0].shape[1]
-        e4, vals, lids, args, bfrag = partials(strips_d, wx0_d, slices)
-        out = S.first_min_combine(vals, lids, Gl)
-        out_r = S.first_min_combine_reference(vals, lids, Gl)
+        return [S.shard_bank(up(t), up(q.astype(np.int64)), wx0_d, crop_w, g * Gl)
+                for g, (t, q) in enumerate(slices)]
+
+    def row_of_calls(strips_d, shards):
+        """One glyph row's K4p calls, white flags from the first shard only."""
+        return [S.ssd_argmin_partial(strips_d, sb, white=g == 0) for g, sb in enumerate(shards)]
+
+    def checked(strips_d, shards, full_args, n_glyphs, what):
+        """K4p on every shard and K6 on their keys, in place, against their
+        plain versions, and the combined ids against unsharded K4's, folded
+        into ``err``; raises on a difference. Returns the keys."""
+        e4, keys = 0, []
+        for g, (key, white) in enumerate(row_of_calls(strips_d, shards)):
+            sb = shards[g]
+            key_r, white_r = S.ssd_argmin_partial_reference(strips_d, sb.templates, sb.tsq,
+                                                            sb.wx0, sb.g0, white=g == 0)
+            torch.cuda.synchronize()
+            if (white is None) != (g > 0):
+                raise AssertionError(f"K4p, shard {g}: white flags {white is not None}")
+            e4 = max(e4, max_abs_err(key, key_r), 0 if g else
+                     max_abs_err(white.to(torch.int32), white_r.to(torch.int32)))
+            keys.append(key)
+        out = S.first_min_combine(keys)
+        out_r = S.first_min_combine_reference(keys)
         full, _ = S.ssd_argmin(strips_d, *full_args)
         torch.cuda.synchronize()
         e6, e_full = max_abs_err(out, out_r), max_abs_err(out, full)
-        ties = int((vals == vals.min(dim=0).values).sum(dim=0).gt(1).sum())
-        log(f"[mesh-kernels] {len(slices)} glyph shards of {Gl}, {what}: K4p vs plain max|err| "
-            f"{e4}, K6 vs plain {e6}, combined vs unsharded K4 {e_full}; {ties} cells tie "
-            "across shards")
+        metric = S.unpack_key(torch.stack(keys))[0]
+        ties = int((metric == metric.min(dim=0).values).sum(dim=0).gt(1).sum())
+        log(f"[mesh-kernels] {len(shards)} glyph shards of {shards[0].templates.shape[1]}, "
+            f"{what}: K4p vs plain max|err| {e4}, K6 vs plain {e6}, combined vs unsharded K4 "
+            f"{e_full}; {ties} cells tie across shards")
         err["ssd_argmin_partial"] = max(err["ssd_argmin_partial"], e4)
         err["ssd_combine"] = max(err["ssd_combine"], e6, e_full)
         if e4 or e6 or e_full or int(out.max()) >= n_glyphs:
             raise AssertionError(f"mesh kernels mismatch, {what}: K4p {e4}, K6 {e6}, combined "
                                  f"{e_full}, largest id {int(out.max())} of {n_glyphs} glyphs")
-        return vals, lids, args, bfrag
+        return keys
 
     err = {"ssd_argmin_partial": 0, "ssd_combine": 0}
     by_shards: dict[int, dict] = {}
     block = 8  # pages of a slot's block on a 2x2 mesh of the 16-page batch
     for n_g in (2, 4):
-        t = {"k4p_ms": 0.0, "k4p_plain_ms": 0.0, "k6_ms": 0.0, "k6_plain_ms": 0.0,
-             "k4p_device_ms": 0.0, "k6_device_ms": 0.0,
-             "k4p_ops": 0, "k4p_bytes": 0, "k6_bytes": 0}
+        t = {k: 0.0 for k in ("k4p_ms", "k4p_plain_ms", "k4p_device_ms", "k4p_first_device_ms",
+                              "k4p_other_device_ms", "k6_ms", "k6_plain_ms", "k6_device_ms",
+                              "k6_library_ms", "k4p_ops", "k4p_bytes", "k6_bytes")}
+        hus = {"k4p": [], "k6": []}
         for (grp, _), bank in zip(dec.groups, dec.banks):
-            slices = shard_grid_bank(bank.templates, bank.tsq, n_g)
             wx0_d = up(bank.wx0)
+            shards = shard_banks(shard_grid_bank(bank.templates, bank.tsq, n_g), wx0_d,
+                                 bank.crop_w)
             full_args = (up(bank.templates), up(bank.tsq.astype(np.int64)), wx0_d)
             # the 16-page wave, noise and white pages, and the block of 8 pages
             # that a slot of a 2 x n_g mesh is given: checked, then timed
             for label, src in (("corpus wave", pages), ("noise and white pages", noise),
                                (f"a slot's block of {block} pages", pages[:block])):
                 strips_d = up(focr_model.crop_strips(src, grp.ys, grp.crop_h, dec.x0, dec.crop_w))
-                vals, lids, args, bfrag = checked(
-                    strips_d, wx0_d, slices, full_args, bank.n_glyphs,
-                    f"row group h={grp.crop_h}, {label}")
-            Bs, R, h, _ = args[0].shape
-            C, Gl, _, win_w = args[1].shape
-            t["k4p_ms"] += cuda_ms(lambda: S.ssd_argmin_partial(*args, bfrag=bfrag), 20) / block
-            t["k4p_plain_ms"] += cuda_ms(lambda: S.ssd_argmin_partial_reference(*args), 5) / block
-            t["k6_ms"] += cuda_ms(lambda: S.first_min_combine(vals, lids, Gl), 50) / block
-            t["k4p_device_ms"] += device_ms(lambda: S.ssd_argmin_partial(*args, bfrag=bfrag), 20,
-                                            "focr_ssd_argmin") / block
-            t["k6_device_ms"] += device_ms(lambda: S.first_min_combine(vals, lids, Gl), 20,
+                keys = checked(strips_d, shards, full_args, bank.n_glyphs,
+                               f"row group h={grp.crop_h}, {label}")
+            Bs, R, h, _ = strips_d.shape
+            C, Gl, _, win_w = shards[0].templates.shape
+            first, other = shards[0], shards[-1]
+            # per K4p launch: a row's n_g calls, divided by n_g
+            t["k4p_ms"] += cuda_ms(lambda: row_of_calls(strips_d, shards), 20) / n_g / block
+            t["k4p_device_ms"] += device_ms(lambda: row_of_calls(strips_d, shards), 20,
+                                            "focr_ssd_argmin", n_g) / n_g / block
+            t["k4p_first_device_ms"] += device_ms(
+                lambda: S.ssd_argmin_partial(strips_d, first), 20, "focr_ssd_argmin") / block
+            t["k4p_other_device_ms"] += device_ms(
+                lambda: S.ssd_argmin_partial(strips_d, other, white=False), 20,
+                "focr_ssd_argmin") / block
+            t["k4p_plain_ms"] += cuda_ms(lambda: [S.ssd_argmin_partial_reference(
+                strips_d, sb.templates, sb.tsq, sb.wx0, sb.g0, white=g == 0)
+                for g, sb in enumerate(shards)], 3) / n_g / block
+            t["k6_ms"] += cuda_ms(lambda: S.first_min_combine(keys), 50) / block
+            t["k6_device_ms"] += device_ms(lambda: S.first_min_combine(keys), 20,
                                            "focr_ssd_combine") / block
-            t["k6_plain_ms"] += cuda_ms(
-                lambda: S.first_min_combine_reference(vals, lids, Gl), 10) / block
+            t["k6_plain_ms"] += cuda_ms(lambda: S.first_min_combine_reference(keys), 10) / block
+            stacked = torch.stack(keys)
+            t["k6_library_ms"] += cuda_ms(lambda: torch.amin(stacked, dim=0), 50) / block
+            hus["k4p"].append(host_us(lambda: S.ssd_argmin_partial(strips_d, other, white=False)))
+            hus["k6"].append(host_us(lambda: S.first_min_combine(keys)))
+            # operations and bytes a K4p launch needs, on average over the row
             t["k4p_ops"] += 2 * Bs * R * C * Gl * h * win_w
-            t["k4p_bytes"] += nbytes(*args, *S.ssd_argmin_partial(*args, bfrag=bfrag))
-            t["k6_bytes"] += nbytes(vals, lids, S.first_min_combine(vals, lids, Gl))
+            t["k4p_bytes"] += sum(nbytes(strips_d, sb.templates, sb.tsq, sb.wx0, k)
+                                  for sb, k in zip(shards, keys)) / n_g + Bs * R / n_g
+            t["k6_bytes"] += nbytes(*keys, S.first_min_combine(keys))
         k4p_bound = bound(t["k4p_ops"] / block, t["k4p_bytes"] / block)
         k6_bound = bound(0, t["k6_bytes"] / block)
         by_shards[n_g] = {
             "k4p": {"ms": t["k4p_ms"], "device_ms": t["k4p_device_ms"],
+                    "first_shard_device_ms": t["k4p_first_device_ms"],
+                    "other_shard_device_ms": t["k4p_other_device_ms"],
                     "plain_ms": t["k4p_plain_ms"], "bound_ms": k4p_bound[0],
-                    "bound_by": k4p_bound[1]},
+                    "bound_by": k4p_bound[1], "host_us_per_call": hus["k4p"],
+                    "library_ms": None},
             "k6": {"ms": t["k6_ms"], "device_ms": t["k6_device_ms"],
                    "plain_ms": t["k6_plain_ms"], "bound_ms": k6_bound[0],
-                   "bound_by": k6_bound[1]}}
+                   "bound_by": k6_bound[1], "host_us_per_call": hus["k6"],
+                   "library_ms": t["k6_library_ms"]}}
         log(f"[mesh-kernels] {n_g} glyph shards, blocks of {block} pages, ms/page (both row "
-            f"groups): K4p on one slice {t['k4p_ms']:.5f} as its call is timed, "
-            f"{t['k4p_device_ms']:.5f} of device time (plain {t['k4p_plain_ms']:.5f}, bound "
-            f"{k4p_bound[0]:.6f} by {k4p_bound[1]}), K6 {t['k6_ms']:.6f}, {t['k6_device_ms']:.6f} "
-            f"of device time (plain {t['k6_plain_ms']:.5f}, bound {k6_bound[0]:.7f} by "
-            f"{k6_bound[1]}); card {card}")
-    # K6 on adversarial ties
+            f"groups), per launch: K4p {t['k4p_ms']:.5f} as its calls are timed, "
+            f"{t['k4p_device_ms']:.5f} of device time (the first shard, with white flags, "
+            f"{t['k4p_first_device_ms']:.5f}; a later one {t['k4p_other_device_ms']:.5f}; plain "
+            f"{t['k4p_plain_ms']:.5f}, bound {k4p_bound[0]:.6f} by {k4p_bound[1]}; "
+            f"{S.PARTIAL_WARPS} cells a block), K6 {t['k6_ms']:.6f}, {t['k6_device_ms']:.6f} of "
+            f"device time (plain {t['k6_plain_ms']:.5f}, torch.amin of the stacked keys "
+            f"{t['k6_library_ms']:.6f}, bound {k6_bound[0]:.7f} by {k6_bound[1]}); host us a call "
+            f"by row group: K4p {', '.join(f'{v:.1f}' for v in hus['k4p'])}, K6 "
+            f"{', '.join(f'{v:.1f}' for v in hus['k6'])}; card {card}")
+    # K6 on adversarial keys
     n = 3978 * 3 + 1
-    for label, make in (
-        ("equal val in every shard", lambda v: v.fill(7)),
-        ("the minimum in the last shard", lambda v: v[-1].fill(-5)),
-        ("values past 2^53, one apart", lambda v: (v.fill(2**62), v[2].__isub__(1))),
-        ("few distinct values", lambda v: v.__imul__(0).__iadd__(
-            rng.integers(-1, 2, v.shape) * 10**15)),
-    ):
+    lo, hi = -2 * 74565 * 65025, 74565 * 65025  # the metric's ends at check_window's bound
+
+    def adversarial(label, n_g):
+        Gl = S.GID_LIMIT // n_g  # glyphs a shard, numbered from the shard's first
+        metrics = rng.integers(0, 100, (n_g, n)).astype(np.int64)
+        gids = rng.integers(0, Gl, (n_g, n)) + (np.arange(n_g, dtype=np.int64) * Gl)[:, None]
+        if label == "equal metrics in every shard":
+            metrics[:] = 7
+        elif label == "the minimum in the last shard":
+            metrics[-1] = -5
+        elif label == "padded copies of glyph 0":  # the last shard: copies of glyph 0
+            metrics[:] = 9
+            metrics[0], gids[0], metrics[-1] = 3, 0, 3
+        elif label == "the metric's ends, glyphs up to 2^28 - 1":
+            metrics[:] = hi
+            metrics[-1, ::2], metrics[0, 1::4] = lo, lo
+            gids[-1] = S.GID_LIMIT - 1 - rng.integers(0, 2, n)
+        else:  # few distinct values
+            metrics = rng.integers(-1, 2, (n_g, n)).astype(np.int64) * 10**9
+        return metrics, gids
+
+    for label in ("equal metrics in every shard", "the minimum in the last shard",
+                  "padded copies of glyph 0", "the metric's ends, glyphs up to 2^28 - 1",
+                  "few distinct values"):
         for n_g in (2, 4, 8):
-            vals = rng.integers(0, 100, (n_g, n)).astype(np.int64)
-            if n_g > 2 or "2^53" not in label:
-                make(vals)
-            ids = rng.integers(0, 1 << 20, (n_g, n)).astype(np.int32)
-            Gl = 1 << 20  # the ids are local: shard s's count from s * Gl
-            got = S.first_min_combine(up(vals), up(ids), Gl)
+            metrics, gids = adversarial(label, n_g)
+            keys = [up(k) for k in S.pack_key(metrics, gids)]
+            got = S.first_min_combine(keys)
             torch.cuda.synchronize()
-            gids = ids + (np.arange(n_g, dtype=np.int32) * Gl)[:, None]
-            want = np.take_along_axis(gids, np.argmin(vals, axis=0)[None], axis=0)[0]
-            e = max(max_abs_err(got, up(want)),
-                    max_abs_err(got, S.first_min_combine_reference(up(vals), up(ids), Gl)))
+            want = np.take_along_axis(gids, np.argmin(metrics, axis=0)[None], axis=0)[0]
+            e = max(max_abs_err(got, up(want.astype(np.int32))),
+                    max_abs_err(got, S.first_min_combine_reference(keys)))
             if e:
                 raise AssertionError(f"K6 mismatch on {label} at {n_g} shards: max|err| {e}")
             err["ssd_combine"] = max(err["ssd_combine"], e)
@@ -1325,19 +1395,19 @@ def mesh_kernels_phase(dev, card: str) -> tuple[dict, dict]:
     tsq = (wide_t.astype(np.int64) ** 2).sum(axis=(2, 3))
     strips_d = up(rng.integers(0, 256, (1, 3, 1, 40000), dtype=np.uint8))
     wx0_d = up(np.array([0, 5000], np.int32))
-    if S.ssd_plan(1, 40000, 34000)[0] != "int64":
+    shards = shard_banks(shard_grid_bank(wide_t, tsq, 2), wx0_d, 40000)
+    if any(sb.pitch(S.PARTIAL_WARPS) for sb in shards):
         raise AssertionError("the 1x34000 window did not take the int64 instance")
-    checked(strips_d, wx0_d, shard_grid_bank(wide_t, tsq, 2), (up(wide_t), up(tsq), wx0_d), 34,
-            "int64 instance, 1x34000 window")
+    checked(strips_d, shards, (up(wide_t), up(tsq), wx0_d), 34, "int64 instance, 1x34000 window")
     entries = []
     for name, key, line in (("ssd_argmin_partial", "k4p", 71), ("ssd_combine", "k6", 75)):
         entries.append({"name": name, "route": "cuda",
                         "source": "focr_tpu_torch/csrc/focr_ssd.cu",
                         "replaces": f"focr_tpu/parallel/decode.py:{line}", "launches": 0,
                         "launches_per_page": 0.0, "max_abs_err": err[name],
-                        **by_shards[2][key], "library_ms": None, "glyph_shards": 2,
-                        "block_pages": block,
+                        **by_shards[2][key], "glyph_shards": 2, "block_pages": block,
                         "by_glyph_shards": {str(n_g): v[key] for n_g, v in by_shards.items()}})
+    entries[0]["warps"] = S.PARTIAL_WARPS
     return entries[0], entries[1]
 
 
@@ -1519,16 +1589,7 @@ def replay_phase(matcher, pages, launches: dict, n_pages: int, card: str) -> dic
     plain_ms = sum(cuda_ms(lambda: R.ncc_replay_reference(
         *ka[:4], ka[4].bank, ka[4].s_n, ka[4].s2_n, *ka[5:9]), 3) for ka, _ in timed) / B
     # the wrapper's host time a call: many calls, one wait at the end
-    host_us = []
-    for ka, _ in timed:
-        R.ncc_replay(*ka)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter_ns()
-        for _ in range(200):
-            R.ncc_replay(*ka)
-        t1 = time.perf_counter_ns()
-        torch.cuda.synchronize()
-        host_us.append((t1 - t0) / 200 / 1e3)
+    k3_host_us = [host_us(lambda: R.ncc_replay(*ka)) for ka, _ in timed]
     host = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1544,14 +1605,14 @@ def replay_phase(matcher, pages, launches: dict, n_pages: int, card: str) -> dic
         f"cap of 5 ({n_capped} WARN flags), {R.WARPS} warps a segment; ms/page K3 "
         f"{ms:.5f} as the call is timed, {dev_ms:.5f} of device time (plain {plain_ms:.4f}, "
         f"host library replay {host_ms:.4f}, bound {bound_ms:.6f} by {bound_by}); the wrapper's "
-        f"host time a call {', '.join(f'{v:.1f}' for v in host_us)} us by group; launches on the "
-        f"counted CLI run {n3} (K1 {n1}, {n3 / n_pages:g} a page); card {card}")
+        f"host time a call {', '.join(f'{v:.1f}' for v in k3_host_us)} us by group; launches "
+        f"on the counted CLI run {n3} (K1 {n1}, {n3 / n_pages:g} a page); card {card}")
     return {"name": "ncc_replay", "route": "cuda", "source": "focr_tpu_torch/csrc/ncc_replay.cu",
             "replaces": "focr_tpu/models/ncc.py:1422", "launches": n3,
             "launches_per_page": n3 / n_pages, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "host_replay_ms": host_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "candidates_per_page": n_cand / B,
-            "hits_per_page": n_hits / B, "host_us_per_call": host_us,
+            "hits_per_page": n_hits / B, "host_us_per_call": k3_host_us,
             "warps": R.WARPS,
             "segment_candidates": dist, "edge_cases": edges["cases"]}
 

@@ -154,9 +154,11 @@ def load() -> ctypes.CDLL:
     lib.focr_ncc_replay.argtypes = [p, i, i, i, p, ctypes.c_longlong, p, p, p, i, i,
                                     ctypes.c_double, i, i, ctypes.c_longlong, p, p]
     lib.focr_ncc_replay.restype = i
-    lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i, i, i, p, p, p, p]
+    lib.focr_ssd_argmin.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p, i, i, i, p, p, p]
     lib.focr_ssd_argmin.restype = i
-    lib.focr_ssd_combine.argtypes = [p, p, i, ctypes.c_longlong, i, p, p]
+    lib.focr_ssd_partial.argtypes = [p, ctypes.c_longlong, p, i, i, p, p, p]
+    lib.focr_ssd_partial.restype = i
+    lib.focr_ssd_combine.argtypes = [p, i, ctypes.c_longlong, p, p]
     lib.focr_ssd_combine.restype = i
     lib.focr_prop_scan.argtypes = [p, i, i, i, p, i, p, p, i, i, i, f, i, p, p]
     lib.focr_prop_scan.restype = i

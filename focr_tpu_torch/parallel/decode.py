@@ -7,18 +7,20 @@ page fan-out (main.rs:442-471) with a (pages x glyphs) mesh of slots
   * pages axis: each page row of the mesh takes a block of the page batch.
   * glyphs axis: the template bank's glyph dimension is sliced over the
     slots of a row. Each slot runs K4p (ops/ssd_kernels.py::
-    ssd_argmin_partial) on its slice — a partial first-minimum, the minimum
-    metric and its glyph — the partials are copied to the row's first slot
-    (mesh.gather_group) and K6 (first_min_combine) takes the first minimum
-    over shards, turning the slice's glyph number into the bank's. Shards
-    hold contiguous ascending glyph ranges and K6 prefers the lower shard on
-    ties, so the combined result is the reference's first-minimum tie-break
-    (min_by_key, main.rs:159-172) exactly.
+    ssd_argmin_partial) on its slice: one packed key a cell, the minimum
+    metric above the bank's glyph number (only the row's first slot also
+    gives the white flags, the only ones read). The row's first slot runs K6
+    (first_min_combine), the smallest key over the shards, and keeps its
+    glyph. Shards hold contiguous ascending glyph ranges, so the smallest key
+    is the reference's first-minimum tie-break (min_by_key, main.rs:159-172)
+    exactly. When the row's slots share a device (one card, or cpu slots),
+    K6 reads the shards' keys where they lie after an event wait
+    (mesh.share_group); across devices they are copied to the first slot
+    first (mesh.gather_group).
 
 Glyph padding: when the glyph count doesn't divide the shard count, the bank
 is padded with copies of glyph 0. A padded duplicate can never win: its
-metric equals glyph 0's, glyph 0 lives in shard 0 at index 0, and both the
-partial and the combine prefer the earlier index on ties.
+metric equals glyph 0's and its glyph number is higher, so its key is larger.
 
 focr_tpu's ``make_sharded_ncc_fn`` (its decode.py:101-129) is the sharded
 form of the ``device_kernel="xla"`` engine. The port has one sweep kernel and
@@ -36,9 +38,9 @@ import numpy as np
 import torch
 
 from focr_tpu_torch.fonts.bank import GridBank
-from focr_tpu_torch.ops.ssd_kernels import first_min_combine, ssd_argmin_partial
+from focr_tpu_torch.ops.ssd_kernels import first_min_combine, shard_bank, ssd_argmin_partial
 from focr_tpu_torch.parallel.mesh import (
-    GLYPHS_AXIS, PAGES_AXIS, Mesh, Sharded, gather_group, put_global,
+    GLYPHS_AXIS, PAGES_AXIS, Mesh, Sharded, gather_group, on_one_device, put_global, share_group,
 )
 
 
@@ -81,12 +83,15 @@ def make_sharded_grid_fn(bank: GridBank, ys: tuple[int, ...], x0: int, mesh: Mes
     n_p, n_g = mesh.shape[PAGES_AXIS], mesh.shape[GLYPHS_AXIS]
     slices = shard_grid_bank(bank.templates, bank.tsq, n_g)
     Gl = slices[0][0].shape[1]
-    fwd: dict[int, StripForward] = {}
+    fwd = {}  # a StripForward a slot with one glyph shard, else the slot's ShardBank
     for slot in mesh.local_slots:
-        tmpl, tsq = slices[slot.index % n_g]
+        g = slot.index % n_g
+        tmpl, tsq = slices[g]
         with slot.context():  # the slice goes up on the slot's own stream
-            fwd[slot.index] = StripForward(
-                dataclasses.replace(bank, templates=tmpl, tsq=tsq), slot.device)
+            f = StripForward(dataclasses.replace(bank, templates=tmpl, tsq=tsq), slot.device)
+            fwd[slot.index] = f if n_g == 1 else shard_bank(
+                f.templates, f.tsq, f.wx0, bank.crop_w, g * Gl, bfrag=f.bfrag)
+    in_place = {row[0].index: on_one_device([s.device for s in row]) for row in mesh.grid}
 
     def fn(pages: np.ndarray):
         B = pages.shape[0]
@@ -100,23 +105,24 @@ def make_sharded_grid_fn(bank: GridBank, ys: tuple[int, ...], x0: int, mesh: Mes
             head = row[0]
             if head.rank != mesh.rank:
                 continue
-            parts = []
-            for slot in row:
-                f = fwd[slot.index]
-                with slot.context():
-                    if n_g == 1:
-                        parts.append(f(placed[slot.index]))
-                        continue
-                    parts.append(ssd_argmin_partial(
-                        placed[slot.index], f.templates, f.tsq, f.wx0, bfrag=f.bfrag))
             if n_g == 1:
-                ids, white = parts[0]
-            else:
-                vals = gather_group(head, [(s, p[1]) for s, p in zip(row, parts)])
-                lids = gather_group(head, [(s, p[0]) for s, p in zip(row, parts)])
                 with head.context():
-                    ids = first_min_combine(vals, lids, Gl)  # the bank's glyph numbers
-                white = parts[0][2]  # no glyph enters it
+                    ids, white = fwd[head.index](placed[head.index])
+            else:
+                parts = []
+                for slot in row:
+                    with slot.context():  # white flags from the first shard only
+                        key, w = ssd_argmin_partial(placed[slot.index], fwd[slot.index],
+                                                    white=slot is head)
+                    parts.append((slot, key))
+                    if slot is head:
+                        white = w
+                if in_place[head.index]:
+                    keys = share_group(head, parts)
+                else:
+                    keys = list(gather_group(head, parts))
+                with head.context():
+                    ids = first_min_combine(keys)  # the bank's glyph numbers
             ids_out.append((head, rows[head.index], ids))
             white_out.append((head, rows[head.index], white))
         R, C = len(ys), bank.n_cells

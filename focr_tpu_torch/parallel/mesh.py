@@ -9,14 +9,17 @@ and focr_tpu's single-controller shape, with no SPMD compiler under it:
     slots; each slot decodes its block, results come back in page order.
   * ``glyphs`` axis — tensor parallelism over the focr template bank: each
     slot of a glyph group scores its slice of the glyphs (K4's partial
-    first-minimum), the partials are copied to the group's first slot and
-    combined there (K6) with the reference's first-minimum tie-break.
+    first-minimum), and the group's first slot combines the partials (K6)
+    with the reference's first-minimum tie-break: in place when the group
+    shares one device (``share_group``), else copied to it first
+    (``gather_group``).
 
 In one process a mesh is a [pages, glyphs] grid of *slots*. A slot is a
 ``torch.device`` with a stream of its own on it. Two slots may name the same
 device: that is how a 2x2 mesh runs on one card and how ``["cpu"] * 8`` runs
-the CPU tests. Collectives between the slots of one process are copies and
-events (``gather_group``), not ``torch.distributed``.
+the CPU tests. Collectives between the slots of one process are events, and
+copies where the slots sit on different cards (``share_group``,
+``gather_group``), not ``torch.distributed``.
 
 Across processes ``torch.distributed`` over gloo carries host arrays only
 (ids, white flags, the ncc matcher's packed hits): every process drives its
@@ -329,6 +332,32 @@ def gather_group(dst: Slot, parts: list[tuple[Slot, torch.Tensor]]) -> torch.Ten
             out[k].copy_(t, non_blocking=True)
         t.record_stream(dst.stream)
     return out
+
+
+def on_one_device(devices: list[torch.device]) -> bool:
+    """Whether a group's slots name one device (the one-card mesh, or cpu
+    slots): then the group's tensors are read where they lie (share_group),
+    else they are copied to one place (gather_group)."""
+    return all(d == devices[0] for d in devices)
+
+
+def share_group(dst: Slot, parts: list[tuple[Slot, torch.Tensor]]) -> list[torch.Tensor]:
+    """The group's tensors, readable in place on ``dst``'s stream: every slot
+    of the group on dst's device (on_one_device). Each other producer's
+    stream records an event behind its tensor, the destination's stream
+    waits for it, and the tensor is marked as in use by that stream so that
+    the allocator keeps it until dst's work on it has run. The order is
+    gather_group's contract without the copy: on one card a missing wait is
+    a silent race, not an error."""
+    for src, t in parts:
+        if src is dst or dst.device.type != "cuda":
+            continue
+        with src.context():
+            done = torch.cuda.Event()
+            done.record()
+        dst.stream.wait_event(done)
+        t.record_stream(dst.stream)
+    return [t for _, t in parts]
 
 
 def _map_tree(fn, tree):

@@ -50,22 +50,35 @@ def card_label() -> str:
     return out.stdout.strip()
 
 
-@contextlib.contextmanager
-def launch_stream(t: torch.Tensor):
-    """The guard every kernel wrapper launches under: ``t``'s card is made
-    the current device for the block (the launchers in csrc/ act on the
-    current device: the launch itself, cudaFuncSetAttribute, the events a
-    wrapper records), and the raw handle of the current stream on that card
-    is yielded for the launcher's ``stream`` argument. With the slots of a
-    mesh on several cards the caller's current device is whichever it touched
-    last, so nothing may rely on it. Where ``t``'s card is current already
-    (one card: every call), nothing is switched."""
-    idx = t.get_device()
-    if torch.cuda.current_device() == idx:
-        yield torch.cuda.current_stream(idx).cuda_stream
-        return
-    with torch.cuda.device(idx):
-        yield torch.cuda.current_stream(idx).cuda_stream
+class launch_stream:
+    """The guard every kernel wrapper launches under: ``with
+    launch_stream(t) as stream``. ``t``'s card is made the current device for
+    the block (the launchers in csrc/ act on the current device: the launch
+    itself, cudaFuncSetAttribute, the events a wrapper records), and the raw
+    handle of the current stream on that card is given for the launcher's
+    ``stream`` argument. With the slots of a mesh on several cards the
+    caller's current device is whichever it touched last, so nothing may
+    rely on it. Where ``t``'s card is current already (one card: every
+    call), nothing is switched: two C calls of torch's (the current device,
+    the current raw stream), no stream object and no generator, since a
+    wrapper's host time is most of a small launch's cost."""
+
+    __slots__ = ("_t", "_guard")
+
+    def __init__(self, t: torch.Tensor):
+        self._t = t
+        self._guard = None
+
+    def __enter__(self) -> int:
+        idx = self._t.get_device()
+        if torch._C._cuda_getDevice() != idx:
+            self._guard = torch.cuda.device(idx)
+            self._guard.__enter__()
+        return torch._C._cuda_getCurrentRawStream(idx)
+
+    def __exit__(self, *exc) -> None:
+        if self._guard is not None:
+            self._guard.__exit__(*exc)
 
 
 @contextlib.contextmanager

@@ -272,57 +272,124 @@ def test_ssd_argmin_matches_plain_version(cuda, case):
 
 @pytest.mark.parametrize("n_g", [2, 4, 8])
 @pytest.mark.parametrize("case", ["corpus", "noise", "dup-glyph", "narrow", "i64-dot", "ties",
-                                  "strips-17", "tiles-G9-w5", "tiles-G67-w9"])
+                                  "strips-17", "tiles-G9-w5", "tiles-G67-w9", "wide-page",
+                                  "columns-shuffled"])
 def test_partial_and_combine_match_plain_versions(cuda, case, n_g):
-    """K4p (both instances) on every glyph slice of the bank and K6 on the
-    gathered partials against their plain versions, bit for bit; the combined
-    ids are unsharded K4's (duplicated and padded glyphs tie across shards:
-    the lowest shard must win)."""
+    """K4p (both instances) on every glyph slice of the bank, white flags from
+    the first shard only, and K6 on the shards' keys where they lie, against
+    their plain versions, bit for bit; the combined ids are unsharded K4's
+    (duplicated and padded glyphs tie across shards: the lowest glyph must
+    win)."""
     from focr_tpu_torch.parallel.decode import shard_grid_bank
 
     strips, templates, tsq, wx0 = _ssd_inputs(case, seed=len(case))
     dev = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (strips, wx0)]
+    crop_w = strips.shape[3]
     ssd_kernels.reset_launches()
-    vals, lids = [], []
+    keys = []
     slices = shard_grid_bank(templates, tsq, n_g)
     Gl = slices[0][0].shape[1]
-    for tmpl, tq in slices:
-        args = (dev[0], torch.from_numpy(tmpl).to(cuda), torch.from_numpy(tq).to(cuda), dev[1])
-        ids, val, white = ssd_kernels.ssd_argmin_partial(*args)
-        ids_r, val_r, white_r = ssd_kernels.ssd_argmin_partial_reference(*args)
+    for g, (tmpl, tq) in enumerate(slices):
+        t, q = torch.from_numpy(tmpl).to(cuda), torch.from_numpy(tq).to(cuda)
+        shard = ssd_kernels.shard_bank(t, q, dev[1], crop_w, g * Gl)
+        key, white = ssd_kernels.ssd_argmin_partial(dev[0], shard, white=g == 0)
+        key_r, white_r = ssd_kernels.ssd_argmin_partial_reference(dev[0], t, q, dev[1], g * Gl,
+                                                                   white=g == 0)
         torch.cuda.synchronize()
-        assert val.dtype == torch.int64 and torch.equal(val, val_r)
-        assert torch.equal(ids, ids_r) and torch.equal(white, white_r)
-        vals.append(val), lids.append(ids)
-    vals, lids = torch.stack(vals), torch.stack(lids)
-    out = ssd_kernels.first_min_combine(vals, lids, Gl)
+        assert key.dtype == torch.int64 and torch.equal(key, key_r)
+        assert (white is None) == (g > 0) and (g > 0 or torch.equal(white, white_r))
+        keys.append(key)
+    out = ssd_kernels.first_min_combine(keys)
     torch.cuda.synchronize()
     assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": n_g, "ssd_combine": 1}
-    assert torch.equal(out, ssd_kernels.first_min_combine_reference(vals, lids, Gl))
+    assert torch.equal(out, ssd_kernels.first_min_combine_reference(keys))
     full, _ = ssd_kernels.ssd_argmin(dev[0], torch.from_numpy(templates).to(cuda),
                                      torch.from_numpy(tsq).to(cuda), dev[1])
     assert torch.equal(out, full)
 
 
+@pytest.mark.parametrize("warps", [1, 2, 3, 4, 5, 6, 8, 12, 16])
+@pytest.mark.parametrize("case", ["corpus", "columns-ascending", "tiles-G200-w13", "strips-33",
+                                  "narrow"])
+def test_partial_any_block_size_gives_the_same_keys(cuda, case, warps, monkeypatch):
+    """Every cells-a-block setting the sweep tries gives the plain version's
+    keys and white flags (the y-blocks of an M-tile share its strips' white
+    flags: more y-blocks than strips, or fewer)."""
+    strips, templates, tsq, wx0 = _ssd_inputs(case, seed=len(case))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (strips, templates, tsq, wx0)]
+    shard = ssd_kernels.shard_bank(*args[1:], strips.shape[3], 5)
+    monkeypatch.setattr(ssd_kernels, "PARTIAL_WARPS", warps)
+    key, white = ssd_kernels.ssd_argmin_partial(args[0], shard)
+    key_r, white_r = ssd_kernels.ssd_argmin_partial_reference(*args, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(key, key_r) and torch.equal(white, white_r)
+
+
+def test_combine_in_place_on_two_streams(cuda):
+    """The mesh's one-card path: two shards' K4p on two streams of the card,
+    K6 on a third that waits on each shard's event (mesh.share_group) and
+    reads the keys where they lie, repeatedly, with the shards' tensors
+    dropped after each round: every round gives the plain version's ids."""
+    from focr_tpu_torch.parallel import mesh as tmesh
+    from focr_tpu_torch.parallel.decode import shard_grid_bank
+
+    strips, templates, tsq, wx0 = _ssd_inputs("corpus", seed=6)
+    m = tmesh.page_mesh(["cuda:0"] * 3, 3)
+    head = m.grid[0][0]
+    shards = []
+    for slot, (tmpl, tq) in zip(m.grid[0], shard_grid_bank(templates, tsq, 3)):
+        with slot.context():
+            shards.append(ssd_kernels.shard_bank(
+                torch.from_numpy(tmpl).to(cuda), torch.from_numpy(tq).to(cuda),
+                torch.from_numpy(wx0).to(cuda), strips.shape[3], len(shards) * tmpl.shape[1]))
+    torch.cuda.synchronize()
+    full, _ = ssd_kernels.ssd_argmin(*(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                                       for a in (strips, templates, tsq, wx0)))
+    outs = []
+    for r in range(6):
+        parts = []
+        for k, (slot, shard) in enumerate(zip(m.grid[0], shards)):
+            with slot.context():
+                s = torch.from_numpy(np.roll(strips, r, axis=1).copy()).to(cuda, non_blocking=True)
+                parts.append((slot, ssd_kernels.ssd_argmin_partial(s, shard, white=k == 0)[0]))
+        assert tmesh.on_one_device([s.device for s, _ in parts])
+        keys = tmesh.share_group(head, parts)
+        del parts
+        with head.context():
+            outs.append(ssd_kernels.first_min_combine(keys))
+        del keys
+    torch.cuda.synchronize()
+    for r, out in enumerate(outs):
+        want = ssd_kernels.ssd_argmin(torch.from_numpy(np.roll(strips, r, axis=1).copy()).to(cuda),
+                                      *(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                                        for a in (templates, tsq, wx0)))[0]
+        assert torch.equal(out, want)
+    assert torch.equal(outs[0], full)
+
+
 @pytest.mark.parametrize("n_g,n", [(1, 1), (2, 255), (4, 256), (8, 257), (3, 62400), (8, 1 << 20)])
 def test_first_min_combine_ties(cuda, n_g, n):
-    """K6 on few distinct values (most columns tie), on values past f64's
-    exact integers, with the minimum in the last shard, and all equal."""
+    """K6 on few distinct metrics (most cells tie), at the key range's ends
+    with glyphs up to 2^28 - 1, with the minimum in the last shard, and all
+    equal: numpy's first-occurrence argmin over the shards."""
     rng = np.random.default_rng(n)
-    vals = rng.integers(-2, 3, (n_g, n)).astype(np.int64) * 2**40 + 2**61
-    vals[:, : n // 4] = 7
-    vals[-1, n // 4 : n // 2] = -(2**62)
-    ids = rng.integers(0, 1 << 20, (n_g, n)).astype(np.int32)
-    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(ids).to(cuda)
+    lo, hi = -2 * 74565 * 65025, 74565 * 65025
+    metrics = rng.integers(-2, 3, (n_g, n)).astype(np.int64) * 2**30
+    metrics[:, : n // 4] = 7
+    metrics[-1, n // 4 : n // 2] = lo
+    metrics[:, n // 2 : 3 * n // 4] = hi
+    Gl = ssd_kernels.GID_LIMIT // 8  # glyphs a shard, ascending over the shards
+    gids = rng.integers(0, Gl, (n_g, n)) + (np.arange(n_g, dtype=np.int64) * Gl)[:, None]
+    gids[-1, ::7] = ssd_kernels.GID_LIMIT - 1 if n_g == 8 else gids[-1, ::7]
+    keys = [torch.from_numpy(k).to(cuda) for k in ssd_kernels.pack_key(metrics, gids)]
     ssd_kernels.reset_launches()
-    Gl = 1 + n % 97  # glyphs a shard: the local ids become the bank's
-    out = ssd_kernels.first_min_combine(v, i, Gl)
+    out = ssd_kernels.first_min_combine(keys)
     torch.cuda.synchronize()
     assert ssd_kernels.LAUNCHES["ssd_combine"] == 1
-    gids = ids + (np.arange(n_g, dtype=np.int32) * Gl)[:, None]
-    want = np.take_along_axis(gids, np.argmin(vals, axis=0)[None], axis=0)[0]
+    want = np.take_along_axis(gids, np.argmin(metrics, axis=0)[None], axis=0)[0]
     assert np.array_equal(out.cpu().numpy(), want)
-    assert torch.equal(out, ssd_kernels.first_min_combine_reference(v, i, Gl))
+    assert torch.equal(out, ssd_kernels.first_min_combine_reference(keys))
 
 
 PROP_FIXTURE = os.path.join(

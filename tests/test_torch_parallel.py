@@ -556,13 +556,18 @@ def test_all_gather_in_one_process_is_the_identity():
 
 # --- K4p and K6: the plain versions against focr_tpu's shard arithmetic ------------
 
+# the metric's ends: tsq - 2·corr over a window of check_window's 74565 pixels
+METRIC_MIN, METRIC_MAX = -2 * 74565 * 65025, 74565 * 65025
+
 
 @pytest.mark.parametrize("n_g", [1, 2, 4, 5])
 def test_partial_and_combine_match_focr_tpus_shard_fn(setup, n_g):
     """On each glyph slice of one bank (shard_grid_bank: padded with copies of
-    glyph 0): K4p's plain version gives focr_tpu's loc_idx and loc_val
-    (parallel/decode.py:71-73), and K6's plain version its argmin over the
-    gathered partials (:75-79), which is the unsharded first minimum."""
+    glyph 0): K4p's plain version gives keys that unpack to focr_tpu's
+    loc_val and loc_idx + g·Gl (parallel/decode.py:71-74), white flags from
+    the first shard only, and K6's plain version gives focr_tpu's argmin
+    over the gathered partials (:75-79), which is the unsharded first
+    minimum."""
     import jax.numpy as jnp
 
     face, ropts, dopts, shape, pages = setup
@@ -580,22 +585,29 @@ def test_partial_and_combine_match_focr_tpus_shard_fn(setup, n_g):
     wx0 = torch.from_numpy(jb.wx0.astype(np.int32))
     inv = 255 - jnp.asarray(strips).astype(jnp.int32)
     wins = jssd.extract_windows(inv, jb.wx0, jb.win_w)
-    vals, lids, jvals, jidxs = [], [], [], []
+    keys, jvals, jidxs = [], [], []
     for g, (tmpl, tsq) in enumerate(slices):
-        ids, val, white = ssd_kernels.ssd_argmin_partial(
-            torch.from_numpy(strips), torch.from_numpy(tmpl),
-            torch.from_numpy(tsq.astype(np.int64)), wx0)
+        shard = ssd_kernels.shard_bank(torch.from_numpy(tmpl), torch.from_numpy(
+            tsq.astype(np.int64)), wx0, dec.crop_w, g * Gl)
+        key, white = ssd_kernels.ssd_argmin_partial(torch.from_numpy(strips), shard, white=g == 0)
         metric = jssd.ssd_metric(wins, jnp.asarray(tmpl), jnp.asarray(tsq.astype(np.int32)))
         loc_idx = jnp.argmin(metric, axis=-1).astype(jnp.int32)
         loc_val = jnp.take_along_axis(metric, loc_idx[..., None], axis=-1)[..., 0]
-        np.testing.assert_array_equal(ids.numpy(), np.asarray(loc_idx))
+        val, gid = ssd_kernels.unpack_key(key)
+        assert key.dtype == torch.int64 and int(key.min()) >= 0
+        np.testing.assert_array_equal(gid.numpy(), np.asarray(loc_idx) + g * Gl)
         np.testing.assert_array_equal(val.numpy(), np.asarray(loc_val).astype(np.int64))
-        np.testing.assert_array_equal(white.numpy(), np.asarray(jnp.max(inv, axis=(2, 3)) == 0))
-        vals.append(val), lids.append(ids)
+        if g == 0:
+            np.testing.assert_array_equal(white.numpy(),
+                                          np.asarray(jnp.max(inv, axis=(2, 3)) == 0))
+        else:
+            assert white is None
+        keys.append(key)
         jvals.append(loc_val), jidxs.append(loc_idx + g * Gl)
-    got = ssd_kernels.first_min_combine(torch.stack(vals), torch.stack(lids), Gl)
+    got = ssd_kernels.first_min_combine(keys)
     s = jnp.argmin(jnp.stack(jvals), axis=0)
     want = jnp.take_along_axis(jnp.stack(jidxs), s[None], axis=0)[0]
+    assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     full, _ = ssd_kernels.ssd_argmin(torch.from_numpy(strips), torch.from_numpy(jb.templates),
                                      torch.from_numpy(jb.tsq.astype(np.int64)), wx0)
@@ -603,39 +615,168 @@ def test_partial_and_combine_match_focr_tpus_shard_fn(setup, n_g):
     assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": 0, "ssd_combine": 0}
 
 
+def _combine_want(metrics: np.ndarray, gids: np.ndarray) -> np.ndarray:
+    """focr_tpu's rule (parallel/decode.py:78-79): numpy's first-occurrence
+    argmin over the shards' metrics, then that shard's glyph."""
+    return np.take_along_axis(gids, np.argmin(metrics, axis=0)[None], axis=0)[0]
+
+
 @settings(max_examples=60, deadline=None)
 @given(st.integers(1, 8), st.integers(1, 40), st.integers(0, 3), st.integers(0, 2**32 - 1),
-       st.sampled_from([0, 1, 17, 1000]))
+       st.sampled_from([1, 17, 1000, ssd_kernels.GID_LIMIT // 8]))
 def test_first_min_combine_ties(n_g, n, spread, seed, Gl):
-    """Few distinct values, so most columns tie: the id of the LOWEST shard
-    that holds the minimum, as numpy's first-occurrence argmin over shards
-    (jnp.argmin's rule, focr_tpu/parallel/decode.py:78), offset by the
-    shard's first glyph (:74-76)."""
+    """Few distinct metrics, so most cells tie: the combined glyph is that of
+    the LOWEST shard holding the minimum, as numpy's first-occurrence argmin
+    over shards (jnp.argmin's rule, focr_tpu/parallel/decode.py:78), the
+    shard's glyphs numbered from its first (:74-76)."""
     rng = np.random.default_rng(seed)
-    vals = rng.integers(-spread, spread + 1, (n_g, n)).astype(np.int64) * 10**12
-    ids = rng.integers(0, 1000, (n_g, n)).astype(np.int32)
-    got = ssd_kernels.first_min_combine(torch.from_numpy(vals), torch.from_numpy(ids), Gl)
-    gids = ids + (np.arange(n_g, dtype=np.int32) * Gl)[:, None]
-    want = np.take_along_axis(gids, np.argmin(vals, axis=0)[None], axis=0)[0]
+    metrics = rng.integers(-spread, spread + 1, (n_g, n)).astype(np.int64) * 10**9
+    gids = rng.integers(0, Gl, (n_g, n)) + (np.arange(n_g, dtype=np.int64) * Gl)[:, None]
+    keys = [torch.from_numpy(k) for k in ssd_kernels.pack_key(metrics, gids)]
+    got = ssd_kernels.first_min_combine(keys)
     assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), _combine_want(metrics, gids))
 
 
 @pytest.mark.parametrize("case", ["all-equal", "minimum-last", "padded-copies", "int64-range"])
 def test_first_min_combine_adversarial(case):
+    """Keys at the cases the combine's order must get right; "int64-range":
+    metrics at both ends of the key's range with glyphs up to 2^28 - 1."""
     n_g, n = 4, 9
-    vals = np.full((n_g, n), 7, np.int64)
-    ids = np.tile(np.arange(n, dtype=np.int32), (n_g, 1))  # local to each shard of 100 glyphs
+    metrics = np.full((n_g, n), 7, np.int64)
+    gids = np.tile(np.arange(n, dtype=np.int64), (n_g, 1)) + 100 * np.arange(n_g)[:, None]
     if case == "minimum-last":
-        vals[-1] = 6
-    elif case == "padded-copies":  # shard 3 holds copies of glyph 0: glyph 0's value
-        vals[0], vals[1:3], vals[3] = 5, 9, 5
-    elif case == "int64-range":  # values beyond f64's exact integers
-        vals[:] = 2**62
-        vals[2] -= 1
-    got = ssd_kernels.first_min_combine(torch.from_numpy(vals), torch.from_numpy(ids), 100)
-    shard = {"all-equal": 0, "minimum-last": 3, "padded-copies": 0, "int64-range": 2}[case]
-    np.testing.assert_array_equal(got.numpy(), ids[shard] + 100 * shard)
+        metrics[-1] = 6
+    elif case == "padded-copies":  # shard 3 holds copies of glyph 0: glyph 0's metric
+        metrics[0], metrics[1:3], metrics[3] = 5, 9, 5
+        gids[0], gids[3] = 0, 300
+    elif case == "int64-range":
+        gids += ssd_kernels.GID_LIMIT - 1 - int(gids.max())
+        metrics[:] = METRIC_MAX
+        metrics[2], metrics[3, :4] = METRIC_MIN + 1, METRIC_MIN  # the very end wins
+        metrics[1, 4:] = METRIC_MIN
+    keys = [torch.from_numpy(k) for k in ssd_kernels.pack_key(metrics, gids)]
+    got = ssd_kernels.first_min_combine(keys)
+    np.testing.assert_array_equal(got.numpy(), _combine_want(metrics, gids))
+    shard = {"all-equal": [0] * n, "minimum-last": [3] * n, "padded-copies": [0] * n,
+             "int64-range": [3] * 4 + [1] * 5}[case]
+    np.testing.assert_array_equal(got.numpy(), gids[shard, np.arange(n)])
+    if case == "padded-copies":
+        assert (got.numpy() == 0).all()
     with pytest.raises(ValueError, match="one shape"):
-        ssd_kernels.first_min_combine(torch.zeros(9, 2, dtype=torch.int64),
-                                      torch.zeros(9, 2, dtype=torch.int32), 100)
+        ssd_kernels.first_min_combine([torch.zeros(2, dtype=torch.int64)] * 9)
+    with pytest.raises(ValueError, match="one shape"):
+        ssd_kernels.first_min_combine([torch.zeros(2, dtype=torch.int64),
+                                       torch.zeros(3, dtype=torch.int64)])
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.tuples(st.integers(METRIC_MIN, METRIC_MAX),
+                          st.integers(0, ssd_kernels.GID_LIMIT - 1)), min_size=2, max_size=2))
+def test_pack_key_round_trip_and_order(pairs):
+    """Over the whole range (the metric of any window check_window admits,
+    any glyph below 2^28): the key is a non-negative int64, unpacks to its
+    (metric, glyph) as ints, numpy and torch int64 alike, and two keys order
+    as their (metric, glyph) pairs do — the reference's first minimum."""
+    keys = [ssd_kernels.pack_key(m, g) for m, g in pairs]
+    assert all(0 <= k < 2**63 for k in keys)
+    assert [ssd_kernels.unpack_key(k) for k in keys] == pairs
+    assert (keys[0] < keys[1]) == (pairs[0] < pairs[1])
+    m, g = (np.array(v, np.int64) for v in zip(*pairs))
+    for arr in (ssd_kernels.pack_key(m, g), ssd_kernels.pack_key(torch.from_numpy(m),
+                                                                  torch.from_numpy(g)).numpy()):
+        assert arr.dtype == np.int64 and arr.tolist() == keys
+        back = ssd_kernels.unpack_key(arr)
+        assert back[0].tolist() == m.tolist() and back[1].tolist() == g.tolist()
+
+
+def test_shard_bank_checks_once():
+    """shard_bank refuses what K4p cannot take: a glyph number past 2^28, a
+    negative window start, a wrong dtype or shape; a good shard keeps its
+    first glyph and the launcher's pitch for every block size."""
+    rng = np.random.default_rng(3)
+    tmpl = torch.from_numpy(rng.integers(0, 256, (5, 7, 12, 9), dtype=np.uint8))
+    tsq = (tmpl.to(torch.int64) ** 2).sum(dim=(2, 3))
+    wx0 = torch.tensor([0, 7, 15, 23, 31], dtype=torch.int32)
+    sb = ssd_kernels.shard_bank(tmpl, tsq, wx0, 40, g0=ssd_kernels.GID_LIMIT - 7)
+    assert sb.g0 == ssd_kernels.GID_LIMIT - 7 and sb.n_cells == 5 and sb.addr == 0
+    assert all(sb.pitch(w) == ssd_kernels.partial_pitch(wx0.numpy(), 40, 12, 9, w) > 0
+               for w in range(1, ssd_kernels.MAX_PARTIAL_WARPS + 1))
+    for kwargs, match in (({"g0": ssd_kernels.GID_LIMIT - 6}, "2\\^28"),
+                          ({"wx0": -wx0}, ">= 0"), ({"tsq": tsq.to(torch.int32)}, "tsq"),
+                          ({"tsq": tsq[:, :3].contiguous()}, "tsq")):
+        args = {"templates": tmpl, "tsq": tsq, "wx0": wx0, "crop_w": 40, **kwargs}
+        with pytest.raises(ValueError, match=match):
+            ssd_kernels.shard_bank(**args)
+
+
+# --- the combine's two paths: in place on one device, gathered across devices ---------
+
+
+def _sharded_ids(setup, mesh):
+    face, ropts, dopts, shape, pages = setup
+    dec = JGridDecoder(face, ALPHA, dopts, ropts, shape)
+    padded, _ = tmesh.pad_batch(pages, mesh.shape["pages"])
+    out = []
+    for grp, _ in dec.groups:
+        bank = tbank(build_grid_bank(face, ALPHA, ropts, dec.crop_w, grp.crop_h))
+        out.append(tmesh.fetch_global(
+            tdecode.make_sharded_grid_fn(bank, grp.ys, dec.x0, mesh)(padded)))
+        strips = tfocr.crop_strips(padded, grp.ys, grp.crop_h, dec.x0, dec.crop_w)
+        out.append(tuple(t.numpy() for t in tfocr.StripForward(bank, torch.device("cpu"))(
+            torch.from_numpy(strips))))
+    return out
+
+
+def test_one_device_row_combines_in_place_and_other_rows_gather(setup, monkeypatch):
+    """A glyph row whose slots share a device reads the shards' keys where
+    they lie (no gather_group call); a row whose slots name different devices
+    (cpu and cpu:0, faked) takes the gather path, one stack of keys a row.
+    Both give the unsharded step's ids and white flags."""
+    gathers = []
+    real = tmesh.gather_group
+
+    def spy(dst, parts):
+        gathers.append((dst.index, [s.index for s, _ in parts]))
+        out = real(dst, parts)
+        assert out.dtype == torch.int64  # one tensor a row: the keys
+        return out
+
+    monkeypatch.setattr(tdecode, "gather_group", spy)
+    one, mixed = cpu_mesh(8, 2), tmesh.page_mesh(["cpu", "cpu:0"] * 4, 2)
+    assert all(tmesh.on_one_device([s.device for s in row]) for row in one.grid)
+    assert not any(tmesh.on_one_device([s.device for s in row]) for row in mixed.grid)
+    in_place = _sharded_ids(setup, one)
+    assert gathers == []
+    gathered = _sharded_ids(setup, mixed)
+    n_groups = len(gathered) // 2
+    assert gathers == [(2 * r, [2 * r, 2 * r + 1]) for r in range(4)] * n_groups
+    for a, b in zip(in_place, gathered):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for (ids, white), (ids_s, white_s) in zip(in_place[::2], in_place[1::2]):
+        np.testing.assert_array_equal(ids, ids_s)
+        np.testing.assert_array_equal(white, white_s)
+
+
+@pytest.mark.parametrize("glyph_shards", [2, 4])
+def test_only_the_first_shard_gives_white_flags(setup, monkeypatch, glyph_shards):
+    """K4p is asked for white flags on the first slot of each glyph row
+    only; the mesh's white flags still equal those of the step GridDecoder
+    runs a row group with on one slot (StripForward)."""
+    asked = []
+    real = ssd_kernels.ssd_argmin_partial_reference
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        asked.append((tdevice.current_slot(), out[1] is not None))
+        return out
+
+    monkeypatch.setattr(ssd_kernels, "ssd_argmin_partial_reference", spy)
+    mesh = cpu_mesh(8, glyph_shards)
+    res = _sharded_ids(setup, mesh)
+    assert asked and all(w == (i % glyph_shards == 0) for i, w in asked)
+    assert {i for i, _ in asked} == set(range(8))
+    for (ids, white), (ids_s, white_s) in zip(res[::2], res[1::2]):
+        np.testing.assert_array_equal(white, white_s)
+        np.testing.assert_array_equal(ids, ids_s)

@@ -258,3 +258,182 @@ def test_kernel_constants():
     assert "const int nks = (h * nw4 + 7) / 8;" in src
     assert "const int pitch = (crop_w + 4 * nw4 + 4 + 3) & ~3;" in src
     assert "h) * win_w * 65025LL < (1LL << 31) && smem <= SMEM_MAX" in src
+
+
+# --- K4p: the PARTIAL instance's walk ------------------------------------------
+
+
+def model_ssd_partial(strips, templates, tsq, wx0, g0, warps, white):
+    """csrc/focr_ssd.cu's K4p block (k4p_block) in NumPy: strips u8 [N, h,
+    crop_w] -> (key int64 [N, C], white bool [N] or None). A block of
+    ``warps`` cells stages columns [xa, xs) of its 16 strips (whole 16-byte
+    pieces from its first cell's, every byte below crop_w) at x - xa in rows
+    of partial_pitch bytes, and zeroes each row from min(xs, crop_w) to the
+    pitch; the two touch no byte in common. White flags: the y-blocks of an
+    M-tile share its strips, strip m to block m mod gridDim.y, each reading
+    its strips' whole rows. Lanes and quads keep plain minima of packed
+    keys."""
+    N, h, crop_w = strips.shape
+    C, G, _, win_w = templates.shape
+    pitch = S.partial_pitch(wx0, crop_w, h, win_w, warps)
+    nks, nw4 = S.k_steps(h, win_w), -(-win_w // 4)
+    assert pitch > 0 and pitch % 16 == 0
+    assert nks * 32 + MS * h * pitch <= S.SMEM_MAX
+    bfrag = S.pack_template_fragments(torch.from_numpy(templates)).numpy().view(np.uint32)
+    NT = -(-G // 8)
+    gy = -(-C // warps)
+    koff = np.array([(w // nw4) * pitch + 4 * (w % nw4) if w // nw4 < h else 0
+                     for w in range(nks * 8)])
+    key = np.full((N, C), -1, np.int64)
+    flags = np.full(N, -1, np.int8) if white else None
+    x0s = np.clip(wx0.astype(np.int64), 0, crop_w)
+    for m0, c0 in ((m0, c0) for m0 in range(0, N, MS) for c0 in range(0, C, warps)):
+        ms = min(MS, N - m0)
+        cells = x0s[c0 : c0 + warps]
+        xa = int(cells.min()) & ~15
+        xe = min(crop_w, (int(cells.max()) & ~3) + 4 * nw4 + 4)
+        xs = xa + 16 * (-(-(xe - xa) // 16))
+        assert xs - xa <= pitch
+        st = np.full((MS * h, pitch), 0xA5, np.uint8)  # what the block's memory held
+        zeroed = np.zeros(pitch, bool)
+        zeroed[min(xs, crop_w) - xa :] = True
+        staged = np.zeros(pitch, bool)
+        staged[: min(xs, crop_w) - xa] = True
+        assert not (zeroed & staged).any()  # no byte both staged and zeroed
+        st[:, zeroed] = 0
+        rows = 255 - strips[m0 : m0 + ms].reshape(ms * h, crop_w)
+        st[: ms * h, staged] = rows[:, xa : min(xs, crop_w)]
+        if white:  # this block's strips: m = y, y + gy, ... below ms
+            for m in range(c0 // warps, ms, gy):
+                assert flags[m0 + m] == -1  # one block a strip
+                flags[m0 + m] = (strips[m0 + m] == 255).all()
+        words = st.reshape(-1).view("<u4").astype(np.uint64)
+        for c in range(c0, min(C, c0 + warps)):  # a warp a cell
+            x0 = int(x0s[c])
+            sh = (x0 & 3) * 8
+            lo = GQ * h * pitch + (x0 & ~3) - xa
+            hi = lo + 8 * h * pitch
+            best = np.full((2, 32), I64_MAX)  # strips gq, gq + 8
+            for nt in range(NT):
+                acc = np.zeros((32, 4), np.int64)
+                for s in range(nks):
+                    o0, o1 = koff[8 * s + TQ], koff[8 * s + TQ + 4]
+                    regs = np.stack([_funnel(words[(b + o) // 4], words[(b + o) // 4 + 1], sh)
+                                     for b, o in ((lo, o0), (hi, o0), (lo, o1), (hi, o1))], axis=1)
+                    Cm = _a_matrix(regs) @ _b_matrix(bfrag[c, nt, s])
+                    for i in range(4):
+                        acc[:, i] += Cm[GQ + 8 * (i >> 1), 2 * TQ + (i & 1)]
+                assert np.abs(acc).max(initial=0) < 2**31  # s32, exact
+                for e in range(2):
+                    g = 8 * nt + 2 * TQ + e
+                    t = tsq[c, np.minimum(g, G - 1)]
+                    for half in range(2):
+                        k = S.pack_key(t - 2 * acc[:, 2 * half + e], g0 + g)
+                        best[half] = np.where(g < G, np.minimum(best[half], k), best[half])
+            for d in (1, 2):  # the quad's xor-shuffles: plain minima of keys
+                best = np.minimum(best, best[:, LANE ^ d])
+            for lane in np.flatnonzero(TQ == 0):
+                for half in range(2):
+                    m = GQ[lane] + 8 * half
+                    if m < ms:
+                        key[m0 + m, c] = best[half, lane]
+    assert (key >= 0).all()
+    if white:
+        assert (flags >= 0).all()  # every strip's flag written
+        flags = flags.astype(bool)
+    return key, flags
+
+
+def _check_partial(strips, templates, tsq, wx0, warps, g0=0, white=True):
+    key, flags = model_ssd_partial(strips, templates, tsq, wx0, g0, warps, white)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (strips[None], templates, tsq, wx0)]
+    key_r, white_r = S.ssd_argmin_partial_reference(*args, g0=g0, white=white)
+    np.testing.assert_array_equal(key, key_r[0].numpy())
+    if white:
+        np.testing.assert_array_equal(flags, white_r[0].numpy())
+    else:
+        assert flags is None and white_r is None
+    return key
+
+
+@pytest.mark.parametrize("win_w", [1, 3, 4, 5, 9, 13])
+@pytest.mark.parametrize("G", [1, 8, 9, 67, 200])
+def test_partial_walk_matches_plain_version(G, win_w):
+    """test_tile_walk_matches_plain_version's cases through the PARTIAL
+    walk, the block size, the white flag and the shard's first glyph varied
+    with the case."""
+    h = (1, 3, 12)[(G + win_w) % 3]
+    crop_w = 4 * win_w + 7
+    wx0 = [0, 3, crop_w - win_w, crop_w - 2, crop_w]
+    _check_partial(*_case(21, h, crop_w, 5, G, win_w, seed=G * 100 + win_w, wx0=wx0),
+                   warps=(1, 2, 3, 5)[(G + win_w) % 4], g0=G * win_w, white=bool(win_w % 2))
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3, 4, 6, 8, 12, 16])
+@pytest.mark.parametrize("order", ["ascending", "shuffled"])
+def test_partial_walk_block_sizes(order, warps):
+    """40 cells over blocks of 1 to 16 cells: each block stages only its own
+    window, from a 16-byte piece up to 15 bytes before its first cell, in
+    rows of the widest window's pitch; the first shard's blocks of grid.y 0
+    still read whole rows for the white flags."""
+    _check_partial(*columns_case(order), warps=warps, g0=68, white=order == "ascending")
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3, 4])
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 33, 65])
+def test_partial_walk_strip_counts(N, warps):
+    """Strip counts around the M-tile of 16, over 4 cells in blocks of 1-4:
+    the last M-tile may be partial, and its strips' white flags are shared
+    out over the M-tile's y-blocks (more blocks than strips, or fewer)."""
+    _check_partial(*_case(N, 12, 40, 4, 11, 9, seed=N), warps=warps, white=N % 2 == 1 or warps == 1)
+
+
+def test_partial_walk_exact_ties():
+    """Duplicated and empty glyphs tie exactly: the lowest glyph's key is the
+    smallest, across a quad's lanes and across n-tiles."""
+    strips, templates, tsq, wx0 = _case(18, 12, 60, 6, 30, 9, seed=7)
+    templates[:, 20] = templates[:, 28] = templates[:, 3]
+    templates[:, [5, 12, 17, 25]] = 0
+    tsq = (templates.astype(np.int64) ** 2).sum(axis=(2, 3))
+    strips[4:9] = 255
+    key = _check_partial(strips, templates, tsq, wx0, warps=4, g0=1000)
+    gid = S.unpack_key(key)[1] - 1000
+    assert not np.isin(gid, [20, 28, 12, 17, 25]).any() and (gid[4:9] == 5).all()
+
+
+def test_partial_plan():
+    """K4p's pitch on the canonical grid: the widest 16-byte-aligned window
+    of a block, 144 bytes at 16 cells a block (~28 KB of shared memory at
+    h = 12, where K4's whole rows take ~121 KB); the int64 instance where the
+    dot may pass 2^31 or the window's rows do not fit."""
+    wx0 = np.array([0, 7, 15, 23, 31, 39, 46, 54, 62, 70, 78, 86, 93, 101, 109, 117, 125, 133]
+                   + [140 + 7.8 * i for i in range(60)], np.float64).astype(np.int32)
+    assert S.partial_pitch(wx0, 608, 12, 9, 16) == 144
+    assert S.partial_pitch(wx0, 608, 12, 9, 1) == 32
+    assert S.partial_pitch(np.array([0, 5000]), 40000, 1, 34000, 16) == 0  # dot past 2^31
+    assert S.partial_pitch(np.array([0, 9000]), 40000, 12, 2000, 16) == 0  # no room
+    assert S.partial_pitch(np.array([0, 2800]), 3000, 12, 9, 16) == 0  # one block, too wide
+    assert S.partial_pitch(np.array([0, 2800]), 3000, 12, 9, 1) == 16  # K4 takes int64 here
+    assert S.ssd_plan(12, 3000, 9)[0] == "int64"
+    # one cell a block has the narrowest windows (shard_bank packs the
+    # templates when the mma instance runs there)
+    for cells in (wx0, columns_case("shuffled")[3]):
+        p1 = S.partial_pitch(cells, 608, 12, 9, 1)
+        assert all(S.partial_pitch(cells, 608, 12, 9, w) >= p1 for w in range(1, 17))
+
+
+def test_partial_kernel_constants():
+    """The key's constants, the shard count K6 takes and K4p's most warps a
+    block are the kernel's; the launcher passes the pitch it is given."""
+    src = SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr (?:int|long long) (\w+) = ([^;]+);", src))
+    got = {k: int(eval(consts[k].replace("LL", ""))) for k in
+           ("KEY_SHIFT", "KEY_BIAS", "MAX_SHARDS", "PMAXW")}
+    assert got == {"KEY_SHIFT": S.KEY_SHIFT, "KEY_BIAS": S.KEY_BIAS, "MAX_SHARDS": S.MAX_SHARDS,
+                   "PMAXW": S.MAX_PARTIAL_WARPS}
+    assert 1 <= S.PARTIAL_WARPS <= S.MAX_PARTIAL_WARPS
+    assert "+ static_cast<size_t>(MS) * sh->h * pitch;" in src
+    assert [f for f, _ in S._ShardArgs._fields_] == re.findall(
+        r"(\w+)[,;]", src[src.index("struct FocrSsdShard {"):src.index("};", src.index(
+            "struct FocrSsdShard {"))].split("{", 1)[1].replace("const void* ", "").replace(
+                "int ", ""))

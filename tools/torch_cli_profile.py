@@ -6,6 +6,7 @@ the repo, in turns.
     python tools/torch_cli_profile.py compare OTHER_ROOT [--runs N] # pages/s in turns
     python tools/torch_cli_profile.py kernels OTHER_ROOT            # K1-K4 in turns
     python tools/torch_cli_profile.py replay-warps                  # K3 by warps a segment
+    python tools/torch_cli_profile.py ssd-partial-blocks            # K4p by cells a block
     python tools/torch_cli_profile.py pool [depth] [--runs N]       # ncc pool and depth settings
     python tools/torch_cli_profile.py summary OUTPUT_FILE           # medians of a run's lines
     python tools/torch_cli_profile.py pool-summary OUTPUT_FILE      # a pool run by setting
@@ -50,6 +51,18 @@ replay-warps — K3's device time (torch.profiler, 20 calls) on the same ncc
     with the segments' candidates (p50, p99, max) by needle group. The
     wrapper gives every segment ``replay_kernels.WARPS``; this is the sweep
     behind that constant.
+ssd-partial-blocks — K4p's device time (torch.profiler, 20 calls of a glyph
+    row: its shards' calls, white flags from the first) per launch and page
+    on a slot's block of the focr fixture (its first 8 pages, both row
+    groups, cropped as the decoder crops them), at 2 and 4 glyph shards and
+    at 1 (the whole bank as one shard with white flags: K4's work in K4p's
+    shape, beside K4's own device time), for each of PARTIAL_BLOCK_SETTINGS
+    cells a block, each setting's keys and white flags first held bit for
+    bit against the plain version; at the kept setting, the first shard
+    (white flags) and a later one alone; and at 2 shards the K4p and K6
+    wrappers' host µs a call (200 calls, one sync) by row group, first in the
+    fresh process and again after the sweep's traces. The wrapper gives every launch
+    ``ssd_kernels.PARTIAL_WARPS``; this is the sweep behind that constant.
 pool — the ncc CLI's pages/s at 16 and at 64 pages (the fixture's pages four
     times: eight waves) under each of POOL_SETTINGS (collect threads, the
     pipeline's depth), in four turns whose order rotates and alternates
@@ -255,9 +268,11 @@ def _best_ms(fn, per: int) -> float:
     return best
 
 
-def _device_ms(fn, kernel: str, per: int) -> float:
+def _device_ms(fn, kernel: str, per: int, per_call: int = 1) -> float:
     """ms per ``per`` pages of device time of the kernels whose name holds
-    ``kernel``, from a torch.profiler trace of 20 calls."""
+    ``kernel``, from a torch.profiler trace of 20 calls, each launching
+    ``per_call`` of them: the mean of the kernels the trace holds (it has
+    been seen to leave some out) times ``per_call``."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -268,9 +283,27 @@ def _device_ms(fn, kernel: str, per: int) -> float:
         for _ in range(20):
             fn()
         torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
     us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if kernel in e.key)
-    return us / 1e3 / 20 / per
+             for e in evs)
+    n = sum(e.count for e in evs)
+    return us / n * per_call / 1e3 / per if n else 0.0
+
+
+def _host_us(fn, reps: int = 200) -> float:
+    """A wrapper's host µs a call: ``reps`` calls with one sync at the end,
+    timed on the host clock up to the last call's return (chip_smoke.py's
+    measure)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps / 1e3
 
 
 def _ncc_wave():
@@ -398,6 +431,98 @@ def replay_warps() -> None:
                                    "focr_ncc_replay", x.shape[0])
     finally:
         R.WARPS = kept
+    out["card"] = _card()
+    print(json.dumps(out), flush=True)
+
+
+PARTIAL_BLOCK_SETTINGS = (1, 2, 4, 6, 8, 12, 16)  # cells (warps) a K4p block
+
+
+def ssd_partial_blocks() -> None:
+    """K4p's device ms/page on a slot's 8-page focr block by the cells a
+    block, at 1, 2 and 4 glyph shards; K4's beside it."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.fonts.bank import load_grid_bank
+    from focr_tpu_torch.models import focr as focr_model
+    from focr_tpu_torch.models.types import DecodeOptions, RenderOptions
+    from focr_tpu_torch.ops import ssd_kernels as S
+    from focr_tpu_torch.parallel.decode import shard_grid_bank
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    block = 8
+    banks, settings = load_grid_bank(_fixture("focr"))
+    with np.load(_fixture("focr"), allow_pickle=False) as z:
+        pages = z["pages"][:block]
+    dopts = DecodeOptions(x_start=45, y_start=39, line_height=12, line_advance=15, width=608)
+    dec = focr_model.GridDecoder(None, settings["alphabet"], dopts, RenderOptions(size=13.0),
+                                 pages.shape[1:], "cuda", banks=banks)
+    up = lambda a: torch.as_tensor(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    groups = []  # (strips, K4's step) of each row group
+    for grp, fwd in dec.groups:
+        groups.append((up(focr_model.crop_strips(pages, grp.ys, grp.crop_h, dec.x0,
+                                                 dec.crop_w)), fwd))
+
+    def shard_rows(n_g):
+        """(strips, the n_g shards' banks) of each row group."""
+        rows = []
+        for (x, fwd), bank in zip(groups, dec.banks):
+            slices = shard_grid_bank(bank.templates, bank.tsq, n_g)
+            Gl = slices[0][0].shape[1]
+            rows.append((x, [S.shard_bank(up(t), up(q.astype(np.int64)), fwd.wx0, bank.crop_w,
+                                          g * Gl) for g, (t, q) in enumerate(slices)]))
+        return rows
+
+    def wrapper_us(rows):
+        """K4p's (a later shard) and K6's host µs a call, by row group."""
+        res = {"k4p": [], "k6": []}
+        for x, shards in rows:
+            keys = [S.ssd_argmin_partial(x, sb, white=g == 0)[0] for g, sb in enumerate(shards)]
+            res["k4p"].append(_host_us(lambda: S.ssd_argmin_partial(x, shards[-1], white=False)))
+            res["k6"].append(_host_us(lambda: S.first_min_combine(keys)))
+        return res
+
+    out = {"warps": S.PARTIAL_WARPS, "block_pages": block,
+           "host_us_per_call_2_shards": {"fresh": wrapper_us(shard_rows(2))},
+           "k4_device_ms": sum(_device_ms(lambda: fwd(x), "focr_ssd_argmin", block)
+                               for x, fwd in groups),
+           "device_ms_by_warps": {}}
+    kept = S.PARTIAL_WARPS
+    try:
+        for n_g in (1, 2, 4):
+            rows = shard_rows(n_g)
+            by = out["device_ms_by_warps"][str(n_g)] = {}
+            for w in PARTIAL_BLOCK_SETTINGS:
+                S.PARTIAL_WARPS = w
+                total = 0.0
+                for x, shards in rows:
+                    def row():
+                        return [S.ssd_argmin_partial(x, sb, white=g == 0)
+                                for g, sb in enumerate(shards)]
+
+                    for g, ((key, white), sb) in enumerate(zip(row(), shards)):
+                        key_r, white_r = S.ssd_argmin_partial_reference(
+                            x, sb.templates, sb.tsq, sb.wx0, sb.g0, white=g == 0)
+                        if not torch.equal(key, key_r) or (g == 0 and not torch.equal(white,
+                                                                                      white_r)):
+                            raise AssertionError(f"K4p at {w} cells a block differs from its "
+                                                 f"plain version ({n_g} shards, shard {g})")
+                    total += _device_ms(row, "focr_ssd_argmin", block, n_g) / n_g
+                by[w] = total
+            # at the kept setting: the first shard (white flags) and a later one alone
+            S.PARTIAL_WARPS = kept
+            if n_g > 1:
+                out.setdefault("first_shard_device_ms", {})[str(n_g)] = sum(
+                    _device_ms(lambda: S.ssd_argmin_partial(x, shards[0]), "focr_ssd_argmin",
+                               block) for x, shards in rows)
+                out.setdefault("other_shard_device_ms", {})[str(n_g)] = sum(
+                    _device_ms(lambda: S.ssd_argmin_partial(x, shards[-1], white=False),
+                               "focr_ssd_argmin", block) for x, shards in rows)
+    finally:
+        S.PARTIAL_WARPS = kept
+    out["host_us_per_call_2_shards"]["after_the_traces"] = wrapper_us(shard_rows(2))
     out["card"] = _card()
     print(json.dumps(out), flush=True)
 
@@ -573,6 +698,9 @@ def main() -> int:
     elif mode == "replay-warps":
         sys.path.insert(0, HERE)
         replay_warps()
+    elif mode == "ssd-partial-blocks":
+        sys.path.insert(0, HERE)
+        ssd_partial_blocks()
     elif mode in ("compare", "kernels"):
         compare(os.path.abspath(sys.argv[2]), "time" if mode == "compare" else "kernels-time")
     else:
