@@ -39,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "card; single-card runs are unaffected)")
     p.add_argument("--glyph-shards", type=int, default=1,
                    help="tensor-parallel shards of the glyph template bank (must divide "
-                        "the card count)")
+                        "the slot count over all processes; any number)")
     p.add_argument("--strict", action="store_true",
                    help="fail on the first unreadable page (reference panic semantics); "
                         "default isolates per-page errors to stderr and continues")

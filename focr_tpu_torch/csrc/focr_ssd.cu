@@ -105,7 +105,13 @@
 // of glyph 0 in a later shard never beats glyph 0). It moves 8 bytes a shard
 // in and 4 bytes out for each cell and does no arithmetic to speak of:
 // bound by bytes, and at a block's cells by its launch. One thread an
-// output, the shards' loads in flight together, each coalesced.
+// output, the shards' loads in flight together, each coalesced. Over more
+// than MAX_SHARDS shards a fold pass goes first: the same loads, a group of
+// up to MAX_SHARDS consecutive shards a grid row, each group's smallest key
+// written whole (int64, not unpacked), up to FOLD_PTRS pointers a launch;
+// the host folds (ops/ssd_kernels.py::fold_plan) until at most MAX_SHARDS
+// keys remain, then the pass above takes them. The smallest of the groups'
+// smallest keys is the smallest key, so the fold keeps the tie-break.
 //
 // The int64 instance (the port's first K4): one block per strip, one warp
 // per cell, lanes over the glyphs, every lane reading the same window byte
@@ -126,7 +132,8 @@ constexpr int PT = 5;        // K4p: steps (n-tiles of up to KH k-steps) loaded 
 constexpr int SU = 4;        // staging loads a thread keeps in flight
 constexpr int WARPS64 = 8;   // warps of an int64 block
 constexpr int COMBINE_THREADS = 256;  // threads of a K6 block
-constexpr int MAX_SHARDS = 8;         // key pointers K6 takes
+constexpr int MAX_SHARDS = 8;         // key pointers K6 (its last pass) takes
+constexpr int FOLD_PTRS = 64;         // key pointers a K6 fold launch takes: 8 groups of 8
 constexpr int KEY_SHIFT = 28;         // key = ((metric + KEY_BIAS) << KEY_SHIFT) | gid
 constexpr long long KEY_BIAS = 1LL << 34;
 constexpr size_t SMEM_MAX = 232448 - 1024;  // shared memory a block may use on the H100
@@ -659,6 +666,28 @@ focr_ssd_combine_kernel(const ShardKeys keys, int n_g, long long n, int32_t* __r
     out[i] = static_cast<int32_t>(best & ((1LL << KEY_SHIFT) - 1));
 }
 
+// K6's fold pass: up to FOLD_PTRS pointers, by value and read in place
+struct FoldKeys {
+    const long long* key[FOLD_PTRS];
+};
+
+// one thread an output of a group (blockIdx.y: keys y * MAX_SHARDS on, up to
+// MAX_SHARDS of them) -> the group's smallest key, whole
+__global__ void __launch_bounds__(COMBINE_THREADS)
+focr_ssd_fold_kernel(const __grid_constant__ FoldKeys keys, int n_k, long long n,
+                     long long* __restrict__ out)
+{
+    const long long i = static_cast<long long>(blockIdx.x) * COMBINE_THREADS + threadIdx.x;
+    if (i >= n) return;
+    const int base = blockIdx.y * MAX_SHARDS;
+    const int m = min(n_k - base, MAX_SHARDS);
+    long long best = __ldg(keys.key[base] + i);
+#pragma unroll
+    for (int s = 1; s < MAX_SHARDS; ++s)
+        if (s < m) best = min64(best, __ldg(keys.key[base + s] + i));
+    out[static_cast<long long>(blockIdx.y) * n + i] = best;
+}
+
 }  // namespace
 
 // strips u8 [n_strips, h, crop_w] (not inverted), tmpl u8 [C, G, h, win_w],
@@ -763,5 +792,22 @@ extern "C" int focr_ssd_combine(const void* const* keys, int n_g, long long n, v
     const unsigned blocks = static_cast<unsigned>((n + COMBINE_THREADS - 1) / COMBINE_THREADS);
     focr_ssd_combine_kernel<<<blocks, COMBINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         k, n_g, n, static_cast<int32_t*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K6's fold pass: keys[k] int64 [n] (shards' K4p keys or an earlier fold's
+// rows, on one card), 1 <= n_k <= FOLD_PTRS -> out int64 [ceil(n_k /
+// MAX_SHARDS), n]: row j the smallest of keys j * MAX_SHARDS .. j *
+// MAX_SHARDS + MAX_SHARDS - 1. Returns cudaGetLastError().
+extern "C" int focr_ssd_fold(const void* const* keys, int n_k, long long n, void* out,
+                             void* stream)
+{
+    if (n_k < 1 || n_k > FOLD_PTRS) return static_cast<int>(cudaErrorInvalidValue);
+    FoldKeys k{};
+    for (int s = 0; s < n_k; ++s) k.key[s] = static_cast<const long long*>(keys[s]);
+    const dim3 grid(static_cast<unsigned>((n + COMBINE_THREADS - 1) / COMBINE_THREADS),
+                    (n_k + MAX_SHARDS - 1) / MAX_SHARDS);
+    focr_ssd_fold_kernel<<<grid, COMBINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        k, n_k, n, static_cast<long long*>(out));
     return static_cast<int>(cudaGetLastError());
 }

@@ -160,6 +160,8 @@ def load() -> ctypes.CDLL:
     lib.focr_ssd_partial.restype = i
     lib.focr_ssd_combine.argtypes = [p, i, ctypes.c_longlong, p, p]
     lib.focr_ssd_combine.restype = i
+    lib.focr_ssd_fold.argtypes = [p, i, ctypes.c_longlong, p, p]
+    lib.focr_ssd_fold.restype = i
     lib.focr_prop_scan.argtypes = [p, i, i, i, p, i, p, p, i, i, i, f, i, p, p]
     lib.focr_prop_scan.restype = i
     _lib = lib

@@ -23,7 +23,9 @@ smallest key is the first minimum) and white flags only when asked (the
 first shard). A shard's bank is checked once (``shard_bank``, a
 ``ShardBank``); a call checks only the strips. K6 (``first_min_combine``, the
 same source) reads every shard's keys where they lie and writes the smallest
-key's glyph. Each has its plain version here (``ssd_argmin_partial_reference``,
+key's glyph; over more than MAX_SHARDS shards its fold pass first writes the
+smallest key of each group of up to MAX_SHARDS (``fold_plan``). Each has its
+plain version here (``ssd_argmin_partial_reference``,
 ``first_min_combine_reference``), used by the CPU path and the tests and by
 nothing on a card.
 """
@@ -39,7 +41,8 @@ import torch
 from focr_tpu_torch.ops.ssd import argmin_glyph, check_window, extract_windows, ssd_metric
 from focr_tpu_torch.utils.device import count_launch, launch_stream
 
-LAUNCHES = {"ssd_argmin": 0, "ssd_argmin_partial": 0, "ssd_combine": 0}
+# "ssd_combine_fold": K6's fold launches, over more than MAX_SHARDS shards
+LAUNCHES = {"ssd_argmin": 0, "ssd_argmin_partial": 0, "ssd_combine": 0, "ssd_combine_fold": 0}
 # csrc/focr_ssd.cu's constants: strips a block of the mma instance, the
 # shared memory a block may use
 MMA_STRIPS = 16
@@ -196,7 +199,8 @@ def _check_bfrag(name: str, bfrag: torch.Tensor, C: int, G: int, nks: int, devic
 KEY_SHIFT = 28
 KEY_BIAS = 1 << 34
 GID_LIMIT = 1 << KEY_SHIFT  # a bank glyph number must lie below it
-MAX_SHARDS = 8  # the key tensors K6 takes (csrc/focr_ssd.cu's MAX_SHARDS)
+MAX_SHARDS = 8  # the key tensors K6's last pass takes (csrc/focr_ssd.cu's MAX_SHARDS)
+FOLD_PTRS = 64  # the key tensors a launch of its fold pass takes (FOLD_PTRS there)
 # the cells (warps) of a K4p mma block: the fastest on a slot's 8-page block
 # of the focr corpus at 2 and 4 glyph shards (tools/torch_cli_profile.py
 # ssd-partial-blocks sweeps 1 to MAX_PARTIAL_WARPS, csrc/focr_ssd.cu's
@@ -245,6 +249,20 @@ def first_min_combine_reference(keys) -> torch.Tensor:
     shape) -> int32: the bank's glyph of the smallest key, which is the
     first minimum over the shards (focr_tpu/parallel/decode.py:75-79)."""
     return unpack_key(torch.stack(list(keys)).amin(dim=0))[1].to(torch.int32)
+
+
+def fold_plan(n_g: int) -> list[list[tuple[int, int]]]:
+    """K6's fold passes over ``n_g`` key tensors (none for n_g <= MAX_SHARDS):
+    a level a list, each launch (first key, keys) over the level's key list,
+    FOLD_PTRS keys at most. A launch writes one row a group of MAX_SHARDS
+    consecutive keys, ceil(keys / MAX_SHARDS) rows, and the level's rows in
+    launch order are the next level's keys; the levels end when at most
+    MAX_SHARDS keys remain, which K6's last pass takes."""
+    levels = []
+    while n_g > MAX_SHARDS:
+        levels.append([(k, min(FOLD_PTRS, n_g - k)) for k in range(0, n_g, FOLD_PTRS)])
+        n_g = -(-n_g // MAX_SHARDS)
+    return levels
 
 
 def partial_pitch(wx0: np.ndarray, crop_w: int, h: int, win_w: int, warps: int) -> int:
@@ -356,8 +374,10 @@ def shard_bank(
 
 
 _KeyPointers = ctypes.c_void_p * MAX_SHARDS  # K6's key pointers, as its launcher takes them
+_FoldPointers = ctypes.c_void_p * FOLD_PTRS  # and its fold launcher's (the first n_k read)
 _partial_launcher = None  # the library's focr_ssd_partial, bound at the first launch
 _combine_launcher = None  # and its focr_ssd_combine
+_fold_launcher = None  # and its focr_ssd_fold
 
 
 def ssd_argmin_partial(
@@ -399,15 +419,17 @@ def ssd_argmin_partial(
 
 def first_min_combine(keys) -> torch.Tensor:
     """K6 (csrc/focr_ssd.cu::focr_ssd_combine) for CUDA tensors,
-    first_min_combine_reference for CPU tensors: 1 to MAX_SHARDS key tensors
-    (K4p's, int64, one shape, contiguous, on one device), read where they
-    lie -> int32: the bank's glyph of the smallest key, the first minimum
-    over the shards."""
-    global _combine_launcher
+    first_min_combine_reference for CPU tensors: key tensors (K4p's, int64,
+    one shape, contiguous, on one device), any number of them, read where
+    they lie -> int32: the bank's glyph of the smallest key, the first
+    minimum over the shards. Over more than MAX_SHARDS shards the fold pass
+    (csrc/focr_ssd.cu::focr_ssd_fold, fold_plan's launches) writes the
+    groups' smallest keys to a scratch tensor first."""
+    global _combine_launcher, _fold_launcher
     first = keys[0] if keys else None
-    if first is None or len(keys) > MAX_SHARDS or any(k.shape != first.shape for k in keys):
-        raise ValueError(f"first_min_combine: 1 to {MAX_SHARDS} key tensors of one shape "
-                         f"expected, got {[tuple(k.shape) for k in keys]}")
+    if first is None or any(k.shape != first.shape for k in keys):
+        raise ValueError(f"first_min_combine: key tensors of one shape expected, got "
+                         f"{[tuple(k.shape) for k in keys]}")
     dev = first.get_device()
     if dev < 0:
         if first.device.type == "cpu":
@@ -418,15 +440,44 @@ def first_min_combine(keys) -> torch.Tensor:
             raise ValueError(f"first_min_combine: keys must be contiguous int64 on "
                              f"{first.device}")
     out = torch.empty(first.shape, dtype=torch.int32, device=first.device)
-    if out.numel():
+    n = out.numel()
+    if n:
         if _combine_launcher is None:
             from focr_tpu_torch.native.build import load
 
-            _combine_launcher = load().focr_ssd_combine
-        ptrs = _KeyPointers(*[k.data_ptr() for k in keys])
+            lib = load()
+            _combine_launcher, _fold_launcher = lib.focr_ssd_combine, lib.focr_ssd_fold
+        ptrs = [k.data_ptr() for k in keys]
         with launch_stream(first) as stream:
-            rc = _combine_launcher(ptrs, len(keys), out.numel(), out.data_ptr(), stream)
+            if len(ptrs) > MAX_SHARDS:
+                scratch = torch.empty((_fold_rows(len(ptrs)), n), dtype=torch.int64,
+                                      device=first.device)
+                ptrs = _fold(ptrs, n, scratch.data_ptr(), stream)
+            rc = _combine_launcher(_KeyPointers(*ptrs), len(ptrs), n, out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"first_min_combine kernel launch failed: CUDA error {rc}")
         count_launch(LAUNCHES, "ssd_combine")
     return out
+
+
+def _fold_rows(n_g: int) -> int:
+    """The scratch rows fold_plan's launches write over n_g key tensors."""
+    return sum(-(-cnt // MAX_SHARDS) for level in fold_plan(n_g) for _, cnt in level)
+
+
+def _fold(ptrs: list[int], n: int, row: int, stream: int) -> list[int]:
+    """K6's fold launches (fold_plan) over the keys at ``ptrs``, n int64
+    each, into the scratch rows from address ``row`` on: the addresses of
+    the at most MAX_SHARDS rows left for the last pass."""
+    for level in fold_plan(len(ptrs)):
+        nxt = []
+        for k0, cnt in level:
+            rc = _fold_launcher(_FoldPointers(*ptrs[k0 : k0 + cnt]), cnt, n, row, stream)
+            if rc != 0:
+                raise RuntimeError(f"first_min_combine fold launch failed: CUDA error {rc}")
+            count_launch(LAUNCHES, "ssd_combine_fold")
+            for _ in range(-(-cnt // MAX_SHARDS)):  # a row a group
+                nxt.append(row)
+                row += 8 * n
+        ptrs = nxt
+    return ptrs

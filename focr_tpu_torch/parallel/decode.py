@@ -18,6 +18,17 @@ page fan-out (main.rs:442-471) with a (pages x glyphs) mesh of slots
     (mesh.share_group); across devices they are copied to the first slot
     first (mesh.gather_group).
 
+A glyph row may span processes, as focr_tpu's glyph group may span hosts.
+Its first slot, the head, lies in the lowest of its processes, so the white
+flags never cross. Each other process runs K4p on its own slots of the row,
+copies the keys to one pinned buffer after its streams' work and sends it
+to the head's process over gloo, point to point (mesh.send_group); the
+head's process receives them (mesh.recv_group, posted before any wait),
+uploads them on the head's stream (mesh.upload_group) and runs K6 over its
+own keys, read in place, and the uploaded ones, in glyph-shard order. Point
+to point rather than an all-gather: only the row's processes take part, the
+keys cross once, and a process holding none of the row waits on nothing.
+
 Glyph padding: when the glyph count doesn't divide the shard count, the bank
 is padded with copies of glyph 0. A padded duplicate can never win: its
 metric equals glyph 0's and its glyph number is higher, so its key is larger.
@@ -40,7 +51,8 @@ import torch
 from focr_tpu_torch.fonts.bank import GridBank
 from focr_tpu_torch.ops.ssd_kernels import first_min_combine, shard_bank, ssd_argmin_partial
 from focr_tpu_torch.parallel.mesh import (
-    GLYPHS_AXIS, PAGES_AXIS, Mesh, Sharded, gather_group, on_one_device, put_global, share_group,
+    GLYPHS_AXIS, PAGES_AXIS, Mesh, Sharded, gather_group, on_one_device, put_global, recv_group,
+    send_group, share_group, upload_group,
 )
 
 
@@ -75,7 +87,8 @@ def make_sharded_grid_fn(bank: GridBank, ys: tuple[int, ...], x0: int, mesh: Mes
     The single-slot equivalent is models/focr.py::StripForward on cropped
     strips. Here the strips are cropped on the host once for the batch, each
     page row's block goes up to every slot of the row, every slot scores its
-    glyph slice, and the row's first slot combines. With one glyph shard a
+    glyph slice, and the row's first slot combines, with the keys of the
+    row's slots in other processes received first. With one glyph shard a
     slot runs plain K4 and nothing is combined. B must be a multiple of the
     pages-axis size (use mesh.pad_batch)."""
     from focr_tpu_torch.models.focr import StripForward, crop_strips
@@ -91,7 +104,12 @@ def make_sharded_grid_fn(bank: GridBank, ys: tuple[int, ...], x0: int, mesh: Mes
             f = StripForward(dataclasses.replace(bank, templates=tmpl, tsq=tsq), slot.device)
             fwd[slot.index] = f if n_g == 1 else shard_bank(
                 f.templates, f.tsq, f.wx0, bank.crop_w, g * Gl, bfrag=f.bfrag)
-    in_place = {row[0].index: on_one_device([s.device for s in row]) for row in mesh.grid}
+    # a row's own slots, and whether they name one device (a slot of another
+    # process has none)
+    mine = {p: [s for s in row if s.rank == mesh.rank] for p, row in enumerate(mesh.grid)}
+    in_place = {p: bool(own) and on_one_device([s.device for s in own])
+                for p, own in mine.items()}
+    R, C = len(ys), bank.n_cells
 
     def fn(pages: np.ndarray):
         B = pages.shape[0]
@@ -100,32 +118,50 @@ def make_sharded_grid_fn(bank: GridBank, ys: tuple[int, ...], x0: int, mesh: Mes
         strips = crop_strips(pages, ys, bank.crop_h, x0, bank.crop_w)
         placed = {slot.index: t for slot, _, t in put_global(strips, mesh, PAGES_AXIS).shards}
         rows = dict((s.index, idx) for s, idx in mesh.blocks(PAGES_AXIS, B))
+        b = B // n_p
         ids_out, white_out = [], []
-        for row in mesh.grid:
-            head = row[0]
-            if head.rank != mesh.rank:
+        combines, sends = [], []  # (p, head, own parts, posted receives); the sends to make
+        for p, row in enumerate(mesh.grid):
+            head, own = row[0], mine[p]
+            if not own:
                 continue
             if n_g == 1:
                 with head.context():
                     ids, white = fwd[head.index](placed[head.index])
+                ids_out.append((head, rows[head.index], ids))
+                white_out.append((head, rows[head.index], white))
+                continue
+            parts = []
+            for slot in own:
+                with slot.context():  # white flags from the first shard only
+                    key, w = ssd_argmin_partial(placed[slot.index], fwd[slot.index],
+                                                white=slot is head)
+                parts.append((slot, key))
+                if slot is head:
+                    white_out.append((head, rows[head.index], w))
+            if head.rank != mesh.rank:  # a later part of a row that spans processes
+                if b:
+                    sends.append((head.rank, p, parts))
+                continue
+            theirs = sorted({s.rank for s in row} - {mesh.rank})  # the row's later processes
+            pending = [recv_group(r, p, sum(s.rank == r for s in row), (b, R, C), torch.int64,
+                                  head) for r in theirs] if b else []
+            combines.append((p, head, parts, pending))
+        # the keys go out once this process's K4p launches are all issued
+        sends = [send_group(r, p, parts) for r, p, parts in sends]
+        for p, head, parts, pending in combines:
+            if in_place[p]:
+                keys = share_group(head, parts)
             else:
-                parts = []
-                for slot in row:
-                    with slot.context():  # white flags from the first shard only
-                        key, w = ssd_argmin_partial(placed[slot.index], fwd[slot.index],
-                                                    white=slot is head)
-                    parts.append((slot, key))
-                    if slot is head:
-                        white = w
-                if in_place[head.index]:
-                    keys = share_group(head, parts)
-                else:
-                    keys = list(gather_group(head, parts))
-                with head.context():
-                    ids = first_min_combine(keys)  # the bank's glyph numbers
+                keys = list(gather_group(head, parts))
+            for work, host in pending:  # the processes in rank order: glyph-shard order
+                work.wait()
+                keys += upload_group(head, host)
+            with head.context():
+                ids = first_min_combine(keys)  # the bank's glyph numbers
             ids_out.append((head, rows[head.index], ids))
-            white_out.append((head, rows[head.index], white))
-        R, C = len(ys), bank.n_cells
+        for work, _ in sends:
+            work.wait()
         return (Sharded(mesh, (B, R, C), torch.int32, ids_out, PAGES_AXIS),
                 Sharded(mesh, (B, R), torch.bool, white_out, PAGES_AXIS))
 

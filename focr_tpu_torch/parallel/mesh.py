@@ -24,8 +24,10 @@ copies where the slots sit on different cards (``share_group``,
 Across processes ``torch.distributed`` over gloo carries host arrays only
 (ids, white flags, the ncc matcher's packed hits): every process drives its
 own slots and all-gathers what it computed, so each returns the whole result
-(``fetch_global``, ``all_gather_bytes``). A glyph group lives inside one
-process; focr_tpu lets it span hosts.
+(``fetch_global``, ``all_gather_bytes``). A glyph group may span processes,
+as focr_tpu's may span hosts: the processes that hold a row's later slots
+send their keys to the process of its first slot, point to point
+(``send_group``, ``recv_group``, ``upload_group``).
 
 ``FOCR_TORCH_MESH_DEVICES`` (a comma list, e.g. ``cuda:0,cuda:0,cuda:0,
 cuda:0`` or ``cpu,cpu``) replaces ``auto_mesh``'s slot list, which is
@@ -207,20 +209,24 @@ def mesh_devices(device) -> list[str]:
 def page_mesh(devices: list | None = None, glyph_shards: int = 1) -> Mesh:
     """Build the (pages x glyphs) mesh over ``devices``, this process's slots
     (default: mesh_devices of a card when one is visible, else of the CPU).
-    ``glyph_shards`` must divide their count; the pages axis takes the rest.
-    With one slot this is a 1x1 mesh, which every decoder runs unpartitioned.
+    ``glyph_shards`` must divide the slot count over every process, as
+    focr_tpu's must divide the global device count; the pages axis takes the
+    rest. With one slot this is a 1x1 mesh, which every decoder runs
+    unpartitioned.
 
     Under an initialised process group the mesh spans every process's slots
-    in rank order; each process must bring the same number, and a glyph group
-    lives inside one process."""
+    in rank order, and each process must bring the same number. A glyph
+    group may then span processes (parallel/decode.py sends its keys to the
+    process of its first slot)."""
     if devices is None:
         devices = mesh_devices("cuda" if torch.cuda.is_available() else "cpu")
     names = [str(d) for d in devices]
     n = len(names)
     world, rank = process_count(), process_index()
-    if n == 0 or glyph_shards < 1 or n % glyph_shards != 0:
-        of = " of this process (a glyph group lives inside one process)" if world > 1 else ""
-        raise ValueError(f"glyph_shards={glyph_shards} must divide device count {n}{of}")
+    if n == 0 or glyph_shards < 1 or n * world % glyph_shards != 0:
+        of = f" ({world} processes of {n})" if world > 1 else ""
+        raise ValueError(f"glyph_shards={glyph_shards} must divide device count "
+                         f"{n * world}{of}")
     if world == 1:
         return Mesh(names, glyph_shards)
     counts = [int(c[0]) for c in all_gather_host(np.array([n], np.int64))]
@@ -264,6 +270,48 @@ def all_gather_bytes(payload: bytes) -> list[bytes]:
     buf = np.zeros(max(lens), np.uint8)
     buf[: len(payload)] = np.frombuffer(payload, np.uint8)
     return [b[:n].tobytes() for b, n in zip(all_gather_host(buf), lens)]
+
+
+def send_group(dst_rank: int, tag: int, parts: list[tuple[Slot, torch.Tensor]]):
+    """Start sending this process's part of a glyph row that spans processes
+    to ``dst_rank``, the process of the row's first slot: the slots' tensors
+    (one shape) in slot order, copied once to one host buffer [len(parts),
+    ...] (pinned, each copy on its slot's stream, the streams waited on),
+    over gloo with ``tag``. Returns (the send's work, the buffer): wait on
+    the work before the buffer may go."""
+    import torch.distributed as dist
+
+    first = parts[0][1]
+    if first.device.type == "cuda":
+        host = torch.empty((len(parts), *first.shape), dtype=first.dtype, pin_memory=True)
+        for j, (slot, t) in enumerate(parts):
+            with slot.context():
+                host[j].copy_(t, non_blocking=True)
+        for slot in {s.index: s for s, _ in parts}.values():
+            slot.stream.synchronize()
+    else:
+        host = torch.stack([t for _, t in parts])
+    return dist.isend(host, dst_rank, tag=tag), host
+
+
+def recv_group(src_rank: int, tag: int, k: int, shape: tuple, dtype: torch.dtype, dst: Slot):
+    """Post the receive of ``k`` tensors of ``shape`` that ``src_rank`` sends
+    with send_group for a row whose first slot is ``dst``, into a host buffer
+    (pinned when dst is on a card). Returns (the receive's work, the
+    buffer): wait on the work, then upload_group."""
+    import torch.distributed as dist
+
+    host = torch.empty((k, *shape), dtype=dtype, pin_memory=dst.device.type == "cuda")
+    return dist.irecv(host, src_rank, tag=tag), host
+
+
+def upload_group(dst: Slot, host: torch.Tensor) -> list[torch.Tensor]:
+    """A received buffer's tensors on ``dst``, uploaded on its stream (so
+    dst's work reads them with no other wait), each contiguous."""
+    if dst.device.type != "cuda":
+        return list(host.unbind(0))
+    with dst.context():
+        return list(host.to(dst.device, non_blocking=True).unbind(0))
 
 
 def merge_shards(shards, shape, dtype) -> np.ndarray:

@@ -263,7 +263,8 @@ def test_ssd_argmin_matches_plain_version(cuda, case):
     ssd_kernels.reset_launches()
     ids, white = ssd_kernels.ssd_argmin(*args)
     torch.cuda.synchronize()
-    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 1, "ssd_argmin_partial": 0, "ssd_combine": 0}
+    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 1, "ssd_argmin_partial": 0, "ssd_combine": 0,
+                                    "ssd_combine_fold": 0}
     ids_r, white_r = ssd_kernels.ssd_argmin_reference(*args)
     assert torch.equal(ids, ids_r) and torch.equal(white, white_r)
     assert case == "strips-1" or not bool(white.all())  # its one strip is white
@@ -301,7 +302,8 @@ def test_partial_and_combine_match_plain_versions(cuda, case, n_g):
         keys.append(key)
     out = ssd_kernels.first_min_combine(keys)
     torch.cuda.synchronize()
-    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": n_g, "ssd_combine": 1}
+    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": n_g, "ssd_combine": 1,
+                                    "ssd_combine_fold": 0}
     assert torch.equal(out, ssd_kernels.first_min_combine_reference(keys))
     full, _ = ssd_kernels.ssd_argmin(dev[0], torch.from_numpy(templates).to(cuda),
                                      torch.from_numpy(tsq).to(cuda), dev[1])
@@ -387,6 +389,33 @@ def test_first_min_combine_ties(cuda, n_g, n):
     out = ssd_kernels.first_min_combine(keys)
     torch.cuda.synchronize()
     assert ssd_kernels.LAUNCHES["ssd_combine"] == 1
+    want = np.take_along_axis(gids, np.argmin(metrics, axis=0)[None], axis=0)[0]
+    assert np.array_equal(out.cpu().numpy(), want)
+    assert torch.equal(out, ssd_kernels.first_min_combine_reference(keys))
+
+
+@pytest.mark.parametrize("n_g,n", [(9, 257), (16, 62400), (17, 1 << 20), (64, 3001),
+                                   (65, 4097), (600, 99)])
+def test_first_min_combine_many_shards(cuda, n_g, n):
+    """K6 over more than MAX_SHARDS shards: fold_plan's fold launches, then
+    one launch of the last pass; numpy's first-occurrence argmin over the
+    shards on ties, the minimum in the last shard and the key range's ends."""
+    rng = np.random.default_rng(n_g)
+    lo, hi = -2 * 74565 * 65025, 74565 * 65025
+    metrics = rng.integers(-2, 3, (n_g, n)).astype(np.int64) * 2**30
+    metrics[:, : n // 4] = 7
+    metrics[-1, n // 4 : n // 2] = lo
+    metrics[:, n // 2 : 3 * n // 4] = hi
+    Gl = ssd_kernels.GID_LIMIT // n_g
+    gids = rng.integers(0, Gl, (n_g, n)) + (np.arange(n_g, dtype=np.int64) * Gl)[:, None]
+    gids[-1, ::7] = ssd_kernels.GID_LIMIT - 1
+    keys = [torch.from_numpy(k).to(cuda) for k in ssd_kernels.pack_key(metrics, gids)]
+    ssd_kernels.reset_launches()
+    out = ssd_kernels.first_min_combine(keys)
+    torch.cuda.synchronize()
+    folds = sum(len(level) for level in ssd_kernels.fold_plan(n_g))
+    assert ssd_kernels.LAUNCHES["ssd_combine"] == 1 and folds > 0
+    assert ssd_kernels.LAUNCHES["ssd_combine_fold"] == folds
     want = np.take_along_axis(gids, np.argmin(metrics, axis=0)[None], axis=0)[0]
     assert np.array_equal(out.cpu().numpy(), want)
     assert torch.equal(out, ssd_kernels.first_min_combine_reference(keys))

@@ -208,7 +208,7 @@ def test_proportional_alphabet_takes_device_path(sans_font_path):
     assert all(len(p) == 3 for p in got)
     assert key([list(tfocr.decode_single_stream(tdec, pages[0]))]) == key(got[:1])
     assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": 0,
-                                    "ssd_combine": 0}
+                                    "ssd_combine": 0, "ssd_combine_fold": 0}
 
 
 def test_saved_bank_set_decodes_without_a_face():

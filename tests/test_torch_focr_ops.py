@@ -155,7 +155,7 @@ def test_ssd_argmin_reference_matches_strip_forward(case):
     ids2, white2 = ssd_kernels.ssd_argmin(*args)  # CPU tensors: the plain version
     assert torch.equal(ids2, ids) and torch.equal(white2, white)
     assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": 0,
-                                    "ssd_combine": 0}
+                                    "ssd_combine": 0, "ssd_combine_fold": 0}
 
 
 @pytest.mark.parametrize(

@@ -11,6 +11,9 @@ interpret mode.
 """
 
 import dataclasses
+import queue
+import threading
+import types
 from collections import Counter
 
 import jax
@@ -612,7 +615,8 @@ def test_partial_and_combine_match_focr_tpus_shard_fn(setup, n_g):
     full, _ = ssd_kernels.ssd_argmin(torch.from_numpy(strips), torch.from_numpy(jb.templates),
                                      torch.from_numpy(jb.tsq.astype(np.int64)), wx0)
     assert torch.equal(got, full) and int(full.max()) < jb.n_glyphs  # no padded copy wins
-    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": 0, "ssd_combine": 0}
+    assert ssd_kernels.LAUNCHES == {"ssd_argmin": 0, "ssd_argmin_partial": 0, "ssd_combine": 0,
+                                    "ssd_combine_fold": 0}
 
 
 def _combine_want(metrics: np.ndarray, gids: np.ndarray) -> np.ndarray:
@@ -663,8 +667,11 @@ def test_first_min_combine_adversarial(case):
     np.testing.assert_array_equal(got.numpy(), gids[shard, np.arange(n)])
     if case == "padded-copies":
         assert (got.numpy() == 0).all()
+    # any number of shards on the CPU; none, or keys of two shapes, are refused
+    nine = ssd_kernels.first_min_combine([torch.zeros(2, dtype=torch.int64)] * 9)
+    assert nine.dtype == torch.int32 and nine.tolist() == [0, 0]
     with pytest.raises(ValueError, match="one shape"):
-        ssd_kernels.first_min_combine([torch.zeros(2, dtype=torch.int64)] * 9)
+        ssd_kernels.first_min_combine([])
     with pytest.raises(ValueError, match="one shape"):
         ssd_kernels.first_min_combine([torch.zeros(2, dtype=torch.int64),
                                        torch.zeros(3, dtype=torch.int64)])
@@ -780,3 +787,187 @@ def test_only_the_first_shard_gives_white_flags(setup, monkeypatch, glyph_shards
     for (ids, white), (ids_s, white_s) in zip(res[::2], res[1::2]):
         np.testing.assert_array_equal(white, white_s)
         np.testing.assert_array_equal(ids, ids_s)
+
+
+# --- more than 8 glyph shards; glyph rows that span processes --------------------
+
+
+@pytest.mark.parametrize("glyph_shards", [8, 9, 16, 17])
+def test_sharded_grid_over_many_glyph_shards(setup, glyph_shards, slot_calls):
+    """One glyph row of ``glyph_shards`` cpu slots (the 12-glyph bank padded
+    with copies of glyph 0 to a multiple of the shards, as shard_grid_bank
+    pads): ids and white flags bit-identical to focr_tpu's unsharded
+    make_strip_forward on the same pages, and at 8 to focr_tpu's sharded fn
+    on its 8 virtual devices. K4p runs on every slot, K6 once, on the head.
+    (K6 used to refuse more than 8 key tensors, even on cpu slots.)"""
+    from focr_tpu.models.focr import make_strip_forward
+
+    face, ropts, dopts, shape, pages = setup
+    mesh = cpu_mesh(glyph_shards, glyph_shards)
+    assert mesh.shape == {"pages": 1, "glyphs": glyph_shards}
+    dec = JGridDecoder(face, ALPHA, dopts, ropts, shape)
+    noise = np.random.default_rng(glyph_shards).integers(0, 256, (2, *shape), dtype=np.uint8)
+    batch = np.concatenate([pages, noise])  # noise: near-ties across the shards
+    slot_calls.clear()
+    for grp, _ in dec.groups:
+        jb = build_grid_bank(face, ALPHA, ropts, dec.crop_w, grp.crop_h)
+        ids_t, white_t = tmesh.fetch_global(
+            tdecode.make_sharded_grid_fn(tbank(jb), grp.ys, dec.x0, mesh)(batch))
+        strips = tfocr.crop_strips(batch, grp.ys, grp.crop_h, dec.x0, dec.crop_w)
+        ids_j, white_j = (np.asarray(a) for a in make_strip_forward(jb)(strips))
+        np.testing.assert_array_equal(ids_t, ids_j.astype(np.int32))
+        np.testing.assert_array_equal(white_t, white_j)
+        if glyph_shards == 8:
+            ids_s, white_s = jax.device_get(jdecode.make_sharded_grid_fn(
+                jb, grp.ys, dec.x0, jmesh.page_mesh(glyph_shards=8))(batch))
+            np.testing.assert_array_equal(ids_t, np.asarray(ids_s))
+            np.testing.assert_array_equal(white_t, np.asarray(white_s))
+    assert {i for i, k in slot_calls if k == "ssd_argmin_partial"} == set(range(glyph_shards))
+    assert {i for i, k in slot_calls if k == "ssd_combine"} == {0}
+
+
+@pytest.mark.parametrize("n_g", [9, 16, 17, 64, 65, 130])
+@pytest.mark.parametrize("case", ["all-equal", "minimum-last", "padded-copies", "metric-ends",
+                                  "few-values"])
+def test_first_min_combine_many_shards(case, n_g):
+    """The plain K6 over more than 8 shards against numpy's first-occurrence
+    argmin over the shards (focr_tpu/parallel/decode.py:78-79): every shard
+    equal, the minimum in the last shard only, padded copies of glyph 0 in
+    the later shards, the metric's ends with glyphs up to 2^28 - 1, and few
+    distinct values."""
+    rng = np.random.default_rng(n_g)
+    n = 37
+    Gl = ssd_kernels.GID_LIMIT // n_g
+    metrics = rng.integers(0, 100, (n_g, n)).astype(np.int64)
+    gids = rng.integers(0, Gl, (n_g, n)) + (np.arange(n_g, dtype=np.int64) * Gl)[:, None]
+    if case == "all-equal":
+        metrics[:] = 7
+    elif case == "minimum-last":
+        metrics[-1] = -1
+    elif case == "padded-copies":  # shards 1.. hold copies of glyph 0, shard 0 glyph 0 itself
+        metrics[:] = 3
+        gids[0] = 0
+    elif case == "metric-ends":
+        metrics[:] = METRIC_MAX
+        metrics[-1, ::2], metrics[n_g // 2, 1::4] = METRIC_MIN, METRIC_MIN
+        gids[-1] = ssd_kernels.GID_LIMIT - 1 - rng.integers(0, 2, n)
+    else:
+        metrics = rng.integers(-1, 2, (n_g, n)).astype(np.int64) * 10**9
+    keys = [torch.from_numpy(k) for k in ssd_kernels.pack_key(metrics, gids)]
+    got = ssd_kernels.first_min_combine(keys)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _combine_want(metrics, gids))
+    if case == "padded-copies":
+        assert (got.numpy() == 0).all()
+    elif case == "minimum-last":
+        np.testing.assert_array_equal(got.numpy(), gids[-1])
+
+
+@pytest.mark.parametrize("world,n,g", [(2, 1, 2), (2, 3, 2), (2, 4, 8), (3, 2, 3), (2, 3, 6),
+                                       (2, 3, 3)])
+def test_page_mesh_lets_a_glyph_group_span_processes(monkeypatch, world, n, g):
+    """Under a process group, glyph_shards need only divide the slot count
+    over every process (focr_tpu's page_mesh divides the global device
+    count): a row may span processes, its head in the lowest of them.
+    (page_mesh used to require it to divide this process's own count.)"""
+    monkeypatch.setattr(tmesh, "process_count", lambda: world)
+    monkeypatch.setattr(tmesh, "process_index", lambda: 1)
+    monkeypatch.setattr(tmesh, "all_gather_host", lambda a: [a] * world)
+    mesh = tmesh.page_mesh(["cpu"] * n, g)
+    assert mesh.shape == {"pages": world * n // g, "glyphs": g} and mesh.rank == 1
+    assert [s.rank for s in mesh.slots] == [r for r in range(world) for _ in range(n)]
+    assert [s.index for s in mesh.local_slots] == list(range(n, 2 * n))
+    assert all(s.device is None for s in mesh.slots if s.rank != 1)
+    spans = [row for row in mesh.grid if len({s.rank for s in row}) > 1]
+    assert bool(spans) == (n % g != 0)
+    assert all(row[0].rank == min(s.rank for s in row) for row in mesh.grid)
+    with pytest.raises(ValueError, match=f"glyph_shards=5 must divide device count "
+                                         f"{world * n} \\({world} processes of {n}\\)"):
+        tmesh.page_mesh(["cpu"] * n, 5)
+
+
+class _Wire:
+    """gloo's point to point between the threads that stand for processes: a
+    queue a (source, destination, tag), the sender's rank in a thread-local.
+    Stands in for mesh.send_group and mesh.recv_group."""
+
+    def __init__(self):
+        self.boxes: dict = {}
+        self.lock = threading.Lock()
+        self.me = threading.local()
+        self.sent: list = []
+
+    def box(self, key):
+        with self.lock:
+            return self.boxes.setdefault(key, queue.Queue())
+
+    def send_group(self, dst, tag, parts):
+        host = torch.stack([t for _, t in parts])
+        with self.lock:
+            self.sent.append((self.me.rank, dst, tag, [s.index for s, _ in parts]))
+        self.box((self.me.rank, dst, tag)).put(host.clone())
+        return types.SimpleNamespace(wait=lambda: None), host
+
+    def recv_group(self, src, tag, k, shape, dtype, dst):
+        host = torch.empty((k, *shape), dtype=dtype)
+        box = self.box((src, self.me.rank, tag))
+
+        def wait():
+            got = box.get(timeout=120)
+            assert got.shape == host.shape and got.dtype == host.dtype
+            host.copy_(got)
+
+        return types.SimpleNamespace(wait=wait), host
+
+
+@pytest.mark.parametrize("world,n,g", [(2, 1, 2), (2, 3, 2), (2, 4, 8), (3, 2, 3), (3, 1, 3)])
+def test_spanning_rows_in_simulated_processes(setup, monkeypatch, slot_calls, world, n, g):
+    """make_sharded_grid_fn on every process's view of one mesh (threads for
+    processes, _Wire for gloo): each process runs K4p on its own slots; the
+    later processes of a spanning row send their keys once, in slot order,
+    to the head's; K6 runs on the heads only. Every row's ids and white
+    flags come from its head's process, bit-identical to the unsharded
+    step."""
+    face, ropts, dopts, shape, pages = setup
+    wire = _Wire()
+    monkeypatch.setattr(tdecode, "send_group", wire.send_group)
+    monkeypatch.setattr(tdecode, "recv_group", wire.recv_group)
+    meshes = [tmesh.Mesh(["cpu"] * (world * n), g, [r for r in range(world) for _ in range(n)],
+                         r) for r in range(world)]
+    dec = JGridDecoder(face, ALPHA, dopts, ropts, shape)
+    padded, _ = tmesh.pad_batch(pages, meshes[0].shape["pages"])
+    slot_calls.clear()
+    for grp, _ in dec.groups:
+        bank = tbank(build_grid_bank(face, ALPHA, ropts, dec.crop_w, grp.crop_h))
+        fns = [tdecode.make_sharded_grid_fn(bank, grp.ys, dec.x0, m) for m in meshes]
+        outs, errors = [None] * world, []
+
+        def run(r):
+            wire.me.rank = r
+            try:
+                outs[r] = fns[r](padded)
+            except Exception as e:  # noqa: BLE001 - a thread's failure, asserted below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not errors and all(o is not None for o in outs), errors
+        strips = tfocr.crop_strips(padded, grp.ys, grp.crop_h, dec.x0, dec.crop_w)
+        ids_s, white_s = tfocr.StripForward(bank, torch.device("cpu"))(torch.from_numpy(strips))
+        covered = np.zeros(len(padded), bool)
+        for r, (ids, white) in enumerate(outs):
+            heads = [row[0] for row in meshes[r].grid if row[0].rank == r]
+            assert [s for s, _, _ in ids.shards] == heads == [s for s, _, _ in white.shards]
+            for (_, idx, t), (_, _, w) in zip(ids.shards, white.shards):
+                assert torch.equal(t, ids_s[idx]) and torch.equal(w, white_s[idx])
+                covered[idx] = True
+        assert covered.all()
+    rows = meshes[0].grid
+    want = [(r, row[0].rank, p, [s.index for s in row if s.rank == r])  # one send a process
+            for p, row in enumerate(rows) for r in sorted({s.rank for s in row} - {row[0].rank})]
+    assert want and sorted(wire.sent) == sorted(want * len(dec.groups))
+    assert {i for i, k in slot_calls if k == "ssd_argmin_partial"} == set(range(world * n))
+    assert {i for i, k in slot_calls if k == "ssd_combine"} == {row[0].index for row in rows}

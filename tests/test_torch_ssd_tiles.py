@@ -437,3 +437,79 @@ def test_partial_kernel_constants():
         r"(\w+)[,;]", src[src.index("struct FocrSsdShard {"):src.index("};", src.index(
             "struct FocrSsdShard {"))].split("{", 1)[1].replace("const void* ", "").replace(
                 "int ", ""))
+
+
+# --- K6 over more than MAX_SHARDS shards: the fold plan ---------------------------
+
+
+def model_combine(keys: list[np.ndarray]) -> np.ndarray:
+    """K6 as the card runs it (csrc/focr_ssd.cu): fold_plan's launches, each
+    of focr_ssd_fold_kernel's grid rows y taking keys y·MAX_SHARDS on, up to
+    MAX_SHARDS of them, to their smallest key (whole), the rows in launch
+    order the next level's keys; then focr_ssd_combine_kernel over at most
+    MAX_SHARDS keys, the smallest key's low KEY_SHIFT bits."""
+    cur = list(keys)
+    for level in S.fold_plan(len(cur)):
+        assert [k0 for k0, _ in level] == list(range(0, len(cur), S.FOLD_PTRS))
+        assert sum(cnt for _, cnt in level) == len(cur)
+        nxt = []
+        for k0, cnt in level:
+            assert 1 <= cnt <= S.FOLD_PTRS
+            for y in range(-(-cnt // S.MAX_SHARDS)):
+                base = y * S.MAX_SHARDS
+                m = min(cnt - base, S.MAX_SHARDS)
+                best = cur[k0 + base]
+                for s in range(1, S.MAX_SHARDS):
+                    if s < m:
+                        best = np.minimum(best, cur[k0 + base + s])
+                nxt.append(best)
+        cur = nxt
+    assert 1 <= len(cur) <= S.MAX_SHARDS
+    best = cur[0]
+    for s in range(1, S.MAX_SHARDS):
+        if s < len(cur):
+            best = np.minimum(best, cur[s])
+    return (best & ((1 << S.KEY_SHIFT) - 1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("n_g", [1, 2, 8, 9, 16, 17, 63, 64, 65, 72, 513, 600])
+def test_fold_plan_matches_plain_version(n_g):
+    """The card's walk over fold_plan's launches gives the plain K6's glyphs
+    on keys with ties across shards, the minimum in the last shard and
+    padded copies of glyph 0."""
+    rng = np.random.default_rng(n_g)
+    n = 41
+    Gl = S.GID_LIMIT // n_g
+    metrics = rng.integers(-1, 2, (n_g, n)).astype(np.int64) * 10**9
+    gids = rng.integers(0, Gl, (n_g, n)) + (np.arange(n_g, dtype=np.int64) * Gl)[:, None]
+    metrics[-1, :5] = -2 * 10**9  # the minimum in the last shard
+    metrics[:, 5:9], gids[0, 5:9] = -10**9 - 7, 0  # glyph 0 ties every later shard
+    keys = S.pack_key(metrics, gids)
+    got = model_combine(list(keys))
+    want = S.first_min_combine_reference([torch.from_numpy(k) for k in keys])
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(got[:5], gids[-1, :5])
+    np.testing.assert_array_equal(got[5:9], 0)
+
+
+def test_fold_plan_launches():
+    """No fold up to MAX_SHARDS keys; one fold launch up to FOLD_PTRS (9 to
+    64 shards: two launches a combine); a second level past FOLD_PTRS."""
+    assert [S.fold_plan(n) for n in (1, 8)] == [[], []]
+    assert S.fold_plan(9) == [[(0, 9)]] and S.fold_plan(17) == [[(0, 17)]]
+    assert S.fold_plan(64) == [[(0, 64)]]
+    assert S.fold_plan(65) == [[(0, 64), (64, 1)], [(0, 9)]]
+    assert S.fold_plan(600) == [[(0, 64), (64, 64), (128, 64), (192, 64), (256, 64), (320, 64),
+                                 (384, 64), (448, 64), (512, 64), (576, 24)], [(0, 64), (64, 11)],
+                                [(0, 10)]]
+
+
+def test_fold_kernel_constants():
+    """The fold pass's pointer count and group size are the kernel's, and
+    its launcher's grid rows are the groups."""
+    src = SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert int(consts["FOLD_PTRS"]) == S.FOLD_PTRS and int(consts["MAX_SHARDS"]) == S.MAX_SHARDS
+    assert S.FOLD_PTRS % S.MAX_SHARDS == 0
+    assert "(n_k + MAX_SHARDS - 1) / MAX_SHARDS);" in src
+    assert "const int base = blockIdx.y * MAX_SHARDS;" in src

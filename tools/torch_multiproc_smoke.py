@@ -12,6 +12,14 @@ card — and runs the mesh paths over the resulting 8-slot global mesh:
   * focr grid decode, ``GridDecoder(mesh=...).decode_batch``, at 2 glyph
     shards (K4p on every slot, K6 on each group's first): every process must
     hold the whole corpus' lines (mesh.fetch_global's all-gather);
+  * focr on meshes whose glyph rows span the two processes (SPANNING: 1 slot
+    a process at 2 shards, every row spans; 3 slots at 2, one row of three
+    spans; 4 slots at 8, the one row spans): the later process sends its
+    keys to the head's (parallel/decode.py); every process must hold the
+    whole batch's ids and white flags, bit-identical to its local unsharded
+    step, and the lines; on a card, also the host exchange's ms a batch for
+    a spanning row (mesh.send_group, recv_group and upload_group on the
+    keys of one batch, timed on the head's process);
   * the proportional decoder over all eight slots;
   * ncc, ``NccMatcher.get_hits_many_sharded``: each process sweeps and replays
     its share on its own slots and the packed hits are all-gathered
@@ -19,9 +27,11 @@ card — and runs the mesh paths over the resulting 8-slot global mesh:
     with a fused post step.
 
 Every process asserts bit parity with its local single-slot engines and, on a
-card, that K4p and K1 were launched on its own slots (utils/device.py::
-SLOT_LAUNCHES, counted where a wrapper launches; on cpu slots the plain
-versions run and nothing is counted). Exit code 0 = every process passed.
+card, that K4p and K1 were launched on its own slots and K6 on its glyph
+rows' heads only (utils/device.py::SLOT_LAUNCHES, counted where a wrapper
+launches; on cpu slots the plain versions run and nothing is counted). Each
+prints one ``{"multiproc": ...}`` JSON line with those launches and the
+exchange's ms. Exit code 0 = every process passed.
 
 ``--corpus small`` (the default where FreeType and the DejaVu fonts load)
 renders small banks and pages; ``--corpus canonical`` (the default elsewhere)
@@ -33,7 +43,9 @@ it as its phase 19.)
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import select
 import socket
 import subprocess
 import sys
@@ -44,6 +56,7 @@ FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSansMono.ttf"
 SANS_FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
 WORLD = 2
 SLOTS_EACH = 4
+SPANNING = ((1, 2), (3, 2), (4, 8))  # (slots a process, glyph shards): rows across processes
 CHILD_TIMEOUT_S = 300  # under the pytest wrapper's, so a hung rendezvous is reaped here
 
 
@@ -105,6 +118,103 @@ def canonical_corpus(n_pages: int = 16):
     return tuple(cases)
 
 
+def spanning_checks(rank: int, device: str, kw: dict, local, pages) -> dict:
+    """The focr case (``kw``; ``local``, its single-slot decoder) over the
+    SPANNING meshes: ids, white flags and lines against the local unsharded
+    step; on a card, K4p on every own slot and K6 on the own heads only.
+    Returns the launches by mesh."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.models.focr import GridDecoder, StripForward, crop_strips
+    from focr_tpu_torch.parallel import mesh as M
+    from focr_tpu_torch.parallel.decode import make_sharded_grid_fn
+    from focr_tpu_torch.utils.device import SLOT_LAUNCHES, reset_slot_launches
+
+    on_card = torch.device(device).type == "cuda"
+    want_lines = [[(ln.text, ln.y) for ln in page] for page in local.decode_batch(pages)]
+    out = {}
+    for n, g in SPANNING:
+        mesh = M.page_mesh([device] * n, glyph_shards=g)
+        assert any(len({s.rank for s in row}) > 1 for row in mesh.grid)
+        padded, _ = M.pad_batch(pages, mesh.shape[M.PAGES_AXIS])
+        reset_slot_launches()
+        for grp, bank in zip((grp for grp, _ in local.groups), local.banks):
+            ids, white = M.fetch_global(
+                make_sharded_grid_fn(bank, grp.ys, local.x0, mesh)(padded))
+            strips = crop_strips(padded, grp.ys, grp.crop_h, local.x0, local.crop_w)
+            ids_s, white_s = StripForward(bank, torch.device(device))(
+                torch.from_numpy(strips).to(device))
+            assert np.array_equal(ids, ids_s.cpu().numpy()), f"[p{rank}] {n}x{g}: ids"
+            assert np.array_equal(white, white_s.cpu().numpy()), f"[p{rank}] {n}x{g}: white"
+        launches = {f"{i}/{k}": v for (i, k), v in sorted(SLOT_LAUNCHES.items())}
+        if on_card:
+            k4p = {i for i, k in SLOT_LAUNCHES if k == "ssd_argmin_partial"}
+            k6 = {i for i, k in SLOT_LAUNCHES if k == "ssd_combine"}
+            heads = {row[0].index for row in mesh.grid if row[0].rank == rank}
+            assert k4p == {s.index for s in mesh.local_slots}, f"[p{rank}] K4p on {k4p}"
+            assert k6 == heads, f"[p{rank}] {n}x{g}: K6 on slots {k6}, heads {heads}"
+        got = [[(ln.text, ln.y) for ln in page]
+               for page in GridDecoder(device=device, mesh=mesh, **kw).decode_batch(pages)]
+        assert got == want_lines, f"[p{rank}] {n}x{g}: lines"
+        out[f"{n}x{g}"] = launches
+    return out
+
+
+def exchange_ms(device: str, local, pages, reps: int = 30) -> float:
+    """The host exchange of one batch's spanning rows on the 1-slot, 2-shard
+    mesh: each row group of ``local`` (the focr case's single-slot decoder)
+    gives keys [b, R, C] int64 that go from process 1's slot to process 0's
+    (send_group: a pinned copy, the stream waited on, gloo; recv_group,
+    upload_group and the head's stream waited on); ms a batch as the head's
+    process sees it."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from focr_tpu_torch.parallel import mesh as M
+
+    mesh = M.page_mesh([device], glyph_shards=2)
+    b = len(M.pad_batch(pages, mesh.shape[M.PAGES_AXIS])[0]) // mesh.shape[M.PAGES_AXIS]
+    head, slot = mesh.grid[0]
+    mine = mesh.local_slots[0]
+    shapes = [(b, len(grp.ys), bank.n_cells)
+              for (grp, _), bank in zip(local.groups, local.banks)]
+    keys = [torch.randint(0, 2**40, s, dtype=torch.int64, device=device) for s in shapes]
+    torch.cuda.synchronize()
+
+    def one_batch():
+        for tag, key in enumerate(keys):
+            if mine is slot:
+                work, _ = M.send_group(head.rank, tag, [(slot, key)])
+                work.wait()
+            else:
+                work, host = M.recv_group(slot.rank, tag, 1, tuple(key.shape), key.dtype, head)
+                work.wait()
+                got = M.upload_group(head, host)[0]
+                head.stream.synchronize()
+                assert torch.equal(got, key)
+
+    one_batch()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_batch()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def say(line: str) -> None:
+    """One line on stdout in a single write: the two processes share the
+    parent's pipe, and print() under PYTHONUNBUFFERED=1 writes the text and
+    its newline apart, so another process's line could land between them. A
+    pipe write of at most PIPE_BUF bytes is never split."""
+    data = (line + "\n").encode()
+    assert len(data) <= select.PIPE_BUF, f"a {len(data)}-byte line could be split"
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), data)
+
+
 def worker(rank: int, port: int, device: str, corpus: str) -> None:
     sys.path.insert(0, HERE)
     import numpy as np
@@ -131,15 +241,25 @@ def worker(rank: int, port: int, device: str, corpus: str) -> None:
 
         # focr: the mesh decode == the local single-slot decode, on EVERY process
         kw, pages = focr_case
+        local = GridDecoder(device=device, **kw)
         reset_slot_launches()
         got = lines(GridDecoder(device=device, mesh=M.page_mesh(slots, glyph_shards=2),
                                 **kw).decode_batch(pages))
-        want = lines(GridDecoder(device=device, **kw).decode_batch(pages))
+        want = lines(local.decode_batch(pages))
         assert got == want, f"[p{rank}] focr mesh != local"
         assert any(t.strip() for page in got for t, _ in page), "focr decoded nothing"
         mine = {s.index for s in flat.local_slots} if on_card else set()
         assert {i for i, k in SLOT_LAUNCHES if k == "ssd_argmin_partial"} == mine, (
             f"[p{rank}] K4p was launched on slots {sorted(SLOT_LAUNCHES)}")
+        # focr on meshes whose glyph rows span the two processes
+        spanning = spanning_checks(rank, device, kw, local, pages)
+        ms = None
+        if on_card:
+            torch.manual_seed(5)  # the same keys on both processes
+            ms = exchange_ms(device, local, pages)
+        say(json.dumps({"multiproc": {"rank": rank, "device": device, "corpus": corpus,
+                                      "spanning_slot_launches": spanning,
+                                      "exchange_ms_per_batch": ms}}))
 
         # prop: the inked lines over all eight slots
         kw, pages = prop_case
@@ -171,8 +291,8 @@ def worker(rank: int, port: int, device: str, corpus: str) -> None:
         post = lambda hs: process_hits_text(hs, 0.95, 5)  # noqa: E731
         fused = m.get_hits_many_sharded(list(pages), flat, struct=True, post=post)
         assert fused == [post(s) for s in structs], f"[p{rank}] ncc fused post"
-        print(f"[p{rank}] multiproc smoke OK ({corpus} corpus, {SLOTS_EACH} slots on {device}, "
-              f"{flat.size} in the mesh)", flush=True)
+        say(f"[p{rank}] multiproc smoke OK ({corpus} corpus, {SLOTS_EACH} slots on {device}, "
+            f"{flat.size} in the mesh)")
     finally:
         M.shutdown_distributed()
 
