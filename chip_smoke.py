@@ -24,15 +24,24 @@ Phases, each of which raises on failure:
   1. device  — the card's name and power limit; CUDA must be available
   2. build   — nvcc builds csrc/*.cu and g++ builds csrc/ncc_host.cpp (the
                ncc host library) into focr_tpu_torch/_build/; both then load
-               in a process with no compiler on PATH
+               in a process with no compiler on PATH; cuobjdump -sass of the
+               kernels must show GMMA instructions in each of K1's five
+               wgmma instances
   3. kernels — on the first 8-page wave, inverted and ink-cropped as the
-               matcher does: K1 (ncc_sweep) and K2 (compact_hits: its count
-               kernel, one wait, its emit kernel; the count kernel also alone)
-               against their plain PyTorch versions on the card, exact
-               (tolerance 0), then timed with CUDA events (K2 as the main
-               path runs it, and each of its kernels alone), beside cuDNN's
-               conv2d in TF32 on the same wave and needles (a yardstick of the
-               correlation alone; the port never calls it)
+               matcher does: K1 (ncc_sweep, its wgmma instance) and K2
+               (compact_hits: its count kernel, one wait, its emit kernel; the
+               count kernel also alone) against their plain PyTorch versions
+               on the card, exact (tolerance 0), then timed with CUDA events
+               (K2 as the main path runs it, and each of its kernels alone;
+               K1's device time from a torch.profiler trace too), beside
+               cuDNN's conv2d in TF32 on the same wave and needles (a
+               yardstick of the correlation alone; the port never calls it);
+               then K1 on its edge cases (every needle width 4..16 in both
+               tiers, T past 256, ragged words, tiles and items, each
+               straight-line and general instance, and the shapes that take
+               its mma instance), each
+               exact and launching the instance its plan names, and the mma
+               instance timed on a shape that takes it
   4. golden  — NccMatcher on the card decodes the fixture's two golden pages
                to focr_tpu's lines, through K1, K2 and K3
   5. cli     — the ncc CLI on 16 pages: once in-process, with the launch
@@ -95,8 +104,8 @@ Phases, each of which raises on failure:
  13. pipeline — the ncc CLI in-process on the 16 pages four times over (64
                pages, eight waves, 296 needles): stdout equal to the 16 pages'
                four times; 3 host waits a wave; K1, K2 and K3 launched twice a
-               wave each; a torch.profiler trace of one such run, with one K1
-               launch on the caller's stream as a marker in front, must show
+               wave each; a torch.profiler trace of one such run, between
+               K1 launches on the caller's stream as markers, must show
                the pipeline's K1 launches on another stream, and the first K1
                of wave k+1 starting before the collection of wave k ends, for
                every k; then pages/s at the pipeline's depth and at depth 0
@@ -187,7 +196,10 @@ steps taken for K5 and the candidates' windows for K3) over the H100's int8
 tensor-core peak and its bytes
 (inputs read once, outputs written once) over the memory rate — with
 bound_by, and library_ms (null but for K6: no single PyTorch call computes
-the other functions). K1's entry carries its wide instance's numbers as wide_*; K2's
+the other functions). K1's entry carries its device time, its wide
+instance's numbers as wide_* and its two designs under "instances" (the
+wgmma one with the main path's launches; the mma one, which no shape of the
+main path takes, with its numbers on a shape that takes it); K2's
 (whose bytes are the mask rows that hold candidates, the row counts and its
 outputs) its count kernel's launches, each of its two kernels' ms alone, and
 the device stage's host waits a wave; K4's the instance the main path takes;
@@ -473,9 +485,132 @@ def focr_phases(dev, card: str) -> tuple[dict, float, float]:
     return entry, B / wall, B / sub_wall
 
 
-def wide_sweep_checks(dev) -> tuple[int, float, float, tuple[float, str]]:
+def sweep_sass(build) -> dict:
+    """Phase 2's look at K1's machine code: the GMMA instructions (IGMMA,
+    wgmma on u8) in each instance of the wgmma kernel, from cuobjdump -sass
+    of the built library; raises unless every instance has some."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "focr_ncc_sweep_kernel" in name:  # the wgmma instances (not focr_ncc_sweep_mma_kernel)
+            counts[name] = part.count("GMMA")
+    if len(counts) != 5 or not all(counts.values()):
+        raise AssertionError(f"K1's wgmma instances in the SASS: {counts}")
+    log(f"[build] K1's wgmma instances ({len(counts)}): GMMA instructions in each "
+        f"{sorted(counts.values())}")
+    return counts
+
+
+def sweep_edge_checks(dev) -> dict:
+    """Phase 3's K1 checks beyond the canonical wave, each against the plain
+    version bit for bit (tolerance 0) and launching the instance its plan
+    names: every needle width 4..16 in both tiers; T of 1, 17, 257 and 600
+    (blocks along grid.z); windows whose last word, tile or item is ragged
+    and a page narrower than a tile; the straight-line and general
+    instances' k-steps (8 and 12 held); and the shapes that take the mma instance (9 and 13 k-steps, a
+    150x150 needle). Then the mma instance timed on a shape that takes it: 2
+    pages 792x662, 74 needles of 25x16 (the wide tier, 13 k-steps). Returns
+    that instance's numbers and the largest error of all the checks."""
+    import numpy as np
+    import torch
+
+    from focr_tpu_torch.ops import ncc_kernels as K
+
+    def inputs(B, H, W, T, nh, nw, seed, density=0.3):
+        rng = np.random.default_rng(seed)
+        imgs = ((rng.random((B, H, W)) < density) * rng.integers(0, 256, (B, H, W))
+                ).astype(np.uint8)
+        needles = rng.integers(0, 256, (T, nh, nw), dtype=np.uint8)
+        if T > 1:
+            needles[0] = 7  # zero variance: never kept
+        for b in range(B):
+            for _ in range(5):
+                t = rng.integers(T)
+                y, x = rng.integers(0, H - nh + 1), rng.integers(0, W - nw + 1)
+                imgs[b, y : y + nh, x : x + nw] = needles[t]
+        s_n = needles.reshape(T, -1).astype(np.int64).sum(1)
+        s2_n = (needles.reshape(T, -1).astype(np.int64) ** 2).sum(1)
+        return [torch.from_numpy(a).to(dev) for a in (imgs, needles, s_n, s2_n)]
+
+    def check(label, B, H, W, T, nh, nw, thr, seed, want=None):
+        args = inputs(B, H, W, T, nh, nw, seed)
+        plan = K.sweep_plan(nh, nw, K.sweep_tier(nh * nw, thr))
+        K.reset_launches()
+        mask, rcnt = K.ncc_sweep(*args, thr)
+        torch.cuda.synchronize()
+        launched = dict(K.LAUNCHES)
+        mask_r, rcnt_r = K.ncc_sweep_reference(*args, thr)
+        e = max(max_abs_err(mask, mask_r), max_abs_err(rcnt, rcnt_r))
+        if e or launched[plan.key] != 1 or (want and plan.instance != want):
+            raise AssertionError(f"K1 edge case {label}: max|err| {e}, plan {plan}, launches "
+                                 f"{launched}")
+        return e, plan
+
+    err, seen = 0, set()
+    for nw in range(4, 17):
+        for thr in (0.3, -0.2):
+            e, plan = check(f"nw {nw}, thr {thr}", 2, 60, 150, 70, 7, nw, thr, nw)
+            err = max(err, e)
+            seen.add((plan.instance, plan.nks))
+    for label, case, want in (
+        ("T 1", (2, 40, 100, 1, 13, 9, 0.5), "wgmma"),
+        ("T 17", (2, 40, 100, 17, 13, 8, 0.5), "wgmma"),
+        ("T 257", (1, 40, 100, 257, 13, 9, 0.4), "wgmma"),
+        ("T 600", (1, 40, 100, 600, 13, 9, 0.3), "wgmma"),
+        ("a page narrower than a tile", (2, 35, 9, 17, 4, 5, 0.2), "wgmma"),
+        ("W 97: the last word ragged", (3, 97, 97, 17, 13, 8, 0.3), "wgmma"),
+        ("W 627: the crop's width + 1", (2, 60, 627, 74, 13, 8, 0.5), "wgmma"),
+        ("Hs 5: the last item of one row", (2, 17, 300, 222, 13, 9, 0.5), "wgmma"),
+        ("W 400: a last column chunk of one word", (2, 21, 400, 74, 13, 8, 0.5), "wgmma"),
+        ("16x15: 8 k-steps, the narrow general instance", (2, 50, 200, 9, 16, 15, 0.6), "wgmma"),
+        ("21x13: the wide straight-line instance", (2, 60, 200, 74, 21, 13, 0.8), "wgmma"),
+        ("24x13: 12 k-steps, the wide general instance", (1, 60, 200, 9, 24, 13, 0.1), "wgmma"),
+        ("17x15: 9 k-steps, the mma instance", (2, 50, 200, 9, 17, 15, 0.6), "mma"),
+        ("25x16: 13 k-steps, the mma instance", (1, 60, 200, 9, 25, 16, 0.2), "mma"),
+        ("150x150: the mma instance, A from device memory", (1, 330, 300, 3, 150, 150, 0.7),
+         "mma"),
+    ):
+        e, plan = check(label, *case, seed=len(label), want=want)
+        err = max(err, e)
+        seen.add((plan.instance, plan.nks))
+    log(f"[kernels] K1 edge cases: {len(seen)} (instance, k-steps) kinds, "
+        f"all bit-identical to the plain version; max|err| {err}")
+    # the mma instance's time, on a shape that takes it
+    B = 2
+    args = inputs(B, 792, 662, 74, 25, 16, seed=25, density=0.15)
+    T, nh, nw = args[1].shape
+    thr = 0.8
+    plan = K.sweep_plan(nh, nw, K.sweep_tier(nh * nw, thr))
+    packed = K.pack_needles(args[1], plan)
+    terms = K.sweep_terms(args[2], args[3], nh * nw, thr)
+    mask, rcnt = K.ncc_sweep(*args, thr, terms=terms, packed=packed)
+    mask_r, rcnt_r = K.ncc_sweep_reference(*args, thr, terms=terms)
+    e = max(max_abs_err(mask, mask_r), max_abs_err(rcnt, rcnt_r))
+    if e or plan.instance != "mma":
+        raise AssertionError(f"K1's mma instance at 74 needles of 25x16: max|err| {e}, {plan}")
+    k_bound = bound(2 * (792 - nh + 1) * (662 - nw + 1) * T * nh * nw,
+                    nbytes(args[0], args[1], *terms[:2], mask, rcnt) / B)
+    out = {"shape": "2 pages 792x662, 74 needles of 25x16 (wide tier, 13 k-steps)",
+           "max_abs_err": e,
+           "ms": cuda_ms(lambda: K.ncc_sweep(*args, thr, terms=terms, packed=packed), 5) / B,
+           "device_ms": device_ms(lambda: K.ncc_sweep(*args, thr, terms=terms, packed=packed), 5,
+                                  "focr_ncc_sweep_mma") / B,
+           "plain_ms": cuda_ms(lambda: K.ncc_sweep_reference(*args, thr, terms=terms), 1) / B,
+           "bound_ms": k_bound[0], "bound_by": k_bound[1], "library_ms": None,
+           "edge_max_abs_err": max(err, e)}
+    log(f"[kernels] K1's mma instance, {out['shape']}: ms/page {out['ms']:.4f}, device "
+        f"{out['device_ms']:.4f} (plain {out['plain_ms']:.4f}, bound {k_bound[0]:.4f} by "
+        f"{k_bound[1]})")
+    return out
+
+
+def wide_sweep_checks(dev) -> tuple[int, float, float, float, tuple[float, str]]:
     """Phase 9's K1 wide-instance checks. Returns (max|err| against the plain
-    version, kernel ms/page, plain ms/page, (bound ms/page, what bounds it))."""
+    version, kernel ms/page, its device ms/page, plain ms/page, (bound
+    ms/page, what bounds it))."""
     import numpy as np
     import torch
 
@@ -537,12 +672,14 @@ def wide_sweep_checks(dev) -> tuple[int, float, float, tuple[float, str]]:
     T, nh, nw = needles.shape
     k_bound = bound(2 * (H - nh + 1) * (W - nw + 1) * T * nh * nw,
                     nbytes(*args[:2], *dg.terms[:2], mask, rcnt) / B)
-    k_ms = cuda_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag), 10) / B
+    k_ms = cuda_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, packed=dg.packed), 10) / B
+    d_ms = device_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, packed=dg.packed), 10,
+                     "focr_ncc_sweep") / B
     p_ms = cuda_ms(lambda: K.ncc_sweep_reference(*args, terms=dg.terms), 1) / B
     log(f"[prop-kernels] K1 wide instance, 2 pages 792x662, 74 needles 21x13: vs plain "
-        f"max|err| {e}; ms/page K1 {k_ms:.4f} (plain {p_ms:.4f}, bound {k_bound[0]:.4f} "
-        f"by {k_bound[1]})")
-    return err, k_ms, p_ms, k_bound
+        f"max|err| {e}; ms/page K1 {k_ms:.4f}, device {d_ms:.4f} (plain {p_ms:.4f}, bound "
+        f"{k_bound[0]:.4f} by {k_bound[1]})")
+    return err, k_ms, d_ms, p_ms, k_bound
 
 
 def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
@@ -612,7 +749,7 @@ def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
         (12, 20), dev, banks=banks).prop_groups[0][1]
     err = max(err, check("narrow strip, windows hang past its edge",
                          rng.integers(0, 256, (6, 12, 20), dtype=np.uint8), narrow)[0])
-    wide_err, wide_ms, wide_plain_ms, wide_bound = wide_sweep_checks(dev)
+    wide_err, wide_ms, wide_dev_ms, wide_plain_ms, wide_bound = wide_sweep_checks(dev)
 
     # 10. prop-golden: GridDecoder on the card reproduces focr_tpu's lines
     P.reset_launches()
@@ -667,7 +804,8 @@ def prop_phases(dev, card: str) -> tuple[dict, dict, float, float]:
              "launches_per_page": launches / B, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": None}
-    wide = {"wide_max_abs_err": wide_err, "wide_ms": wide_ms, "wide_plain_ms": wide_plain_ms,
+    wide = {"wide_max_abs_err": wide_err, "wide_ms": wide_ms, "wide_device_ms": wide_dev_ms,
+            "wide_plain_ms": wide_plain_ms,
             "wide_bound_ms": wide_bound[0], "wide_bound_by": wide_bound[1],
             "wide_library_ms": None}
     return entry, wide, B / wall, B / sub_wall
@@ -797,7 +935,7 @@ def canonical_wave(matcher, pages) -> list[tuple]:
     out = []
     for grp, dg in zip(matcher.groups, matcher.dev_groups):
         mask, rcnt = K.ncc_sweep(inv_dev, dg.bank, dg.s_n, dg.s2_n, matcher.threshold,
-                                 terms=dg.terms, afrag=dg.afrag)
+                                 terms=dg.terms, packed=dg.packed)
         pos, off, hcnt, _ = K.compact_hits(mask, rcnt)
         out.append((grp, dg, inv, crop, inv_dev, pos, off, hcnt))
     return out
@@ -986,52 +1124,87 @@ def pipeline_phase(matcher, pages, want16: str, card: str) -> dict:
             raise AssertionError("pipeline: the 64 pages' stdout is not the 16 pages' four times")
         groups = len(matcher.groups)
         if waits != (groups + 1) * n_waves or launches != {
-                "ncc_sweep": groups * n_waves, "compact_count": groups * n_waves,
+                "ncc_sweep": groups * n_waves, "ncc_sweep_mma": 0,
+                "compact_count": groups * n_waves,
                 "compact_hits": groups * n_waves, "ncc_replay": groups * n_waves}:
             raise AssertionError(f"pipeline: {n_waves} waves waited {waits} times and launched "
                                  f"{launches}")
-        # the traced run, a K1 launch on the caller's stream in front as a
-        # marker; torch.profiler has been seen to leave kernels out of a
-        # trace, so a trace that holds fewer is taken again (up to 3 times)
+        # the traced run between K1 launches on the caller's stream, as
+        # markers: two before it, two after. Late in this process
+        # torch.profiler leaves some of the caller's kernels out of a trace (a
+        # lone marker, trace after trace; one of two markers, a second from
+        # either end; a fresh process keeps every one, `python
+        # tools/torch_cli_profile.py trace-marker`), so one kept marker
+        # suffices. A fill on the caller's stream at each end, and each kept
+        # kernel's start less its launch call's, are logged. The pipeline's
+        # stream is the one that holds all of its K1 launches; the caller's,
+        # the one that holds only markers. A trace without both is taken
+        # again (up to 3 times)
         dg = matcher.dev_groups[0]
         strip = torch.from_numpy(255 - np.ascontiguousarray(pages[:1, :64])).to(matcher.device)
+        pad = torch.empty(1 << 10, dtype=torch.int32, device=matcher.device)
         trace_path = os.path.join(tmp, "trace.json")
+        n_piped = groups * n_waves
         held = []
         for _ in range(3):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                K.ncc_sweep(strip, dg.bank, dg.s_n, dg.s2_n, THRESHOLD, terms=dg.terms,
-                            afrag=dg.afrag)
+                pad.fill_(1)
                 torch.cuda.synchronize()
-                out, _ = _run_cli(ncc_main, argv)
+                time.sleep(1.0)
+                for k in range(4):
+                    if k == 2:
+                        out, _ = _run_cli(ncc_main, argv)
+                    K.ncc_sweep(strip, dg.bank, dg.s_n, dg.s2_n, THRESHOLD, terms=dg.terms,
+                                packed=dg.packed)
+                    torch.cuda.synchronize()
+                time.sleep(1.0)
+                pad.fill_(2)
                 torch.cuda.synchronize()
             if out != want16 * reps:
                 raise AssertionError("pipeline: the traced run's stdout differs")
             prof.export_chrome_trace(trace_path)
             with open(trace_path) as f:
                 events = json.load(f)["traceEvents"]
-            k1 = sorted((e for e in events if e.get("cat") == "kernel"
-                         and "focr_ncc_sweep_kernel" in e.get("name", "")),
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            k1 = sorted((e for e in kernels if "focr_ncc_sweep_kernel" in e.get("name", "")),
                         key=lambda e: e["ts"])
             spans = [e for e in events if e.get("name") == "focr_ncc_collect_wave"
                      and e.get("ph") == "X" and e.get("cat") in ("user_annotation", "cpu_op")]
             if any(e["cat"] == "user_annotation" for e in spans):
                 spans = [e for e in spans if e["cat"] == "user_annotation"]
             spans.sort(key=lambda e: e["ts"])
-            held.append(len(k1))
-            if len(k1) >= 1 + groups * n_waves and len(spans) >= n_waves:
+            by_stream, fills = {}, {}  # K1 and fill kernels by stream
+            for e in k1:
+                by_stream[e["args"].get("stream")] = by_stream.get(e["args"].get("stream"), 0) + 1
+            for e in kernels:
+                if "FillFunctor" in e.get("name", ""):
+                    fills[e["args"].get("stream")] = fills.get(e["args"].get("stream"), 0) + 1
+            launch_ts = {e["args"].get("correlation"): e["ts"] for e in events
+                         if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")}
+            lag = [(e["ts"] - launch_ts[e["args"].get("correlation")]) / 1e3 for e in kernels
+                   if e["args"].get("correlation") in launch_ts]
+            side = [st for st, c in by_stream.items() if c == n_piped]
+            callers = [st for st in by_stream if st not in side]
+            first = min((e["ts"] for e in k1 if e["args"].get("stream") in side), default=0)
+            held.append({"k1": by_stream, "fills": fills, "markers_before_after": [
+                sum(1 for e in k1 if e["args"].get("stream") in callers and e["ts"] < first),
+                sum(1 for e in k1 if e["args"].get("stream") in callers and e["ts"] > first)],
+                "start_less_launch_ms": [round(min(lag), 3), round(max(lag), 3)]
+                if lag else None})
+            if len(side) == 1 and callers and len(spans) >= n_waves:
                 break
-        if len(held) > 1:
-            log(f"[pipeline] the traces held {held} of the {1 + groups * n_waves} K1 launches")
-        if len(k1) != 1 + groups * n_waves or len(spans) != n_waves:
-            raise AssertionError(f"pipeline trace: {len(k1)} K1 launches and {len(spans)} "
-                                 f"collect spans for {n_waves} waves")
-        marker, side = k1[0]["args"]["stream"], {e["args"]["stream"] for e in k1[1:]}
-        if len(side) != 1 or marker in side:
-            raise AssertionError(f"pipeline trace: the pipeline's K1 ran on streams {side}, the "
-                                 f"caller's stream is {marker}")
+        log(f"[pipeline] {len(held)} trace(s) taken; K1 and fill kernels by stream in each "
+            f"{held}, of the {n_piped} K1 the pipeline launched and 4 markers")
+        if len(side) != 1 or len(callers) != 1 or by_stream[callers[0]] > 4 \
+                or len(spans) != n_waves:
+            raise AssertionError(f"pipeline trace: K1 launches by stream {by_stream} (the "
+                                 f"pipeline launched {n_piped}, 4 markers on the caller's "
+                                 f"stream) and {len(spans)} collect spans for {n_waves} waves")
+        piped = [e for e in k1 if e["args"].get("stream") == side[0]]
+        marker = callers[0]
         leads = []  # how long before wave k's collection ended wave k+1's first K1 started
         for k in range(n_waves - 1):
-            start = k1[1 + groups * (k + 1)]["ts"]
+            start = piped[groups * (k + 1)]["ts"]
             end = spans[k]["ts"] + spans[k]["dur"]
             if not start < end:
                 raise AssertionError(f"pipeline trace: wave {k + 1}'s sweep started {start - end} "
@@ -1039,7 +1212,7 @@ def pipeline_phase(matcher, pages, want16: str, card: str) -> dict:
             leads.append((end - start) / 1e3)
         log(f"[pipeline] {n} pages, {n_waves} waves: stdout = the 16 pages' x{reps}; host waits "
             f"{waits} ({waits / n_waves:g} a wave); launches {launches}; trace: K1 on stream "
-            f"{side.pop()} (the caller's is {marker}), wave k+1's first K1 starts "
+            f"{side[0]} (the caller's is {marker}), wave k+1's first K1 starts "
             f"{min(leads):.2f}-{max(leads):.2f} ms before wave k's collection ends, for every k")
         # pages/s at the pipeline's depth against depth 0 (the stages in series)
         depth = ncc_model.PIPELINE_DEPTH
@@ -1792,6 +1965,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"[build] nvcc + load {time.perf_counter() - t0:.1f} s: {build.build()}")
+    k1_gmma = sweep_sass(build)
     t0 = time.perf_counter()
     build.load_host()
     host_build = {
@@ -1847,7 +2021,7 @@ def main() -> int:
     ops = {"ncc_sweep": 0, "compact_hits": 0}  # K2 only moves bytes
     moved = {"ncc_sweep": 0, "compact_hits": 0}
     k2_parts = {"count_ms": 0.0, "emit_ms": 0.0}
-    conv_ms = 0.0
+    conv_ms = k1_device_ms = 0.0
     for g in groups:
         dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, THRESHOLD, dev)
         args = (inv_dev, dg.bank, dg.s_n, dg.s2_n, THRESHOLD)
@@ -1892,12 +2066,15 @@ def main() -> int:
         conv_ms += t_conv / B
         ts = {
             ("ncc_sweep", False): cuda_ms(
-                lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag), 10),
+                lambda: K.ncc_sweep(*args, terms=dg.terms, packed=dg.packed), 10),
             ("ncc_sweep", True): cuda_ms(lambda: K.ncc_sweep_reference(*args, terms=dg.terms), 3),
             # K2 as the main path runs it: count, one wait for the total, emit
             ("compact_hits", False): cuda_ms(lambda: K.compact_hits(mask, rcnt), 10),
             ("compact_hits", True): cuda_ms(lambda: K.compact_hits_reference(mask, rcnt), 3),
         }
+        k1_dev = device_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, packed=dg.packed), 10,
+                           "focr_ncc_sweep") / B
+        k1_device_ms += k1_dev
         total = int(out[1][-1])
         count_ms = cuda_ms(lambda: K.compact_counts(rcnt), 20)
         emit_ms = cuda_ms(lambda: K.compact_emit(mask, rcnt, row_off, total), 20)
@@ -1905,12 +2082,16 @@ def main() -> int:
         k2_parts["emit_ms"] += emit_ms / B
         for (name, plain), t in ts.items():
             (plain_ms if plain else ms)[name] += t / B
-        log(f"[kernels] group {g.nw}x{g.nh} ms/page: K1 {ts['ncc_sweep', False] / B:.4f} "
-            f"(plain {ts['ncc_sweep', True] / B:.4f}, conv2d TF32 correlation alone "
+        log(f"[kernels] group {g.nw}x{g.nh} ms/page: K1 {ts['ncc_sweep', False] / B:.4f}, "
+            f"device {k1_dev:.4f} ({K.sweep_plan(nh, nw, 'narrow')}; plain "
+            f"{ts['ncc_sweep', True] / B:.4f}, conv2d TF32 correlation alone "
             f"{t_conv / B:.4f}), K2 count + wait + emit {ts['compact_hits', False] / B:.4f} "
             f"(count alone {count_ms / B:.5f}, emit alone {emit_ms / B:.5f}; plain "
             f"{ts['compact_hits', True] / B:.4f})")
     bounds = {k: bound(ops[k] / B, moved[k] / B) for k in ops}
+    # K1 beyond the canonical wave: its tile edges, both designs
+    k1_mma = sweep_edge_checks(dev)
+    err["ncc_sweep"] = max(err["ncc_sweep"], k1_mma["edge_max_abs_err"])
 
     # 4. golden: the matcher on the card reproduces focr_tpu's lines
     ropts = RenderOptions(size=13.0)
@@ -1927,7 +2108,8 @@ def main() -> int:
     counts = {**K.LAUNCHES, **R.LAUNCHES}
     if got != golden:
         raise AssertionError("golden pages: the card's lines differ from focr_tpu's")
-    if not all(counts.values()):
+    # every kernel of the path; K1's mma instance serves none of its shapes
+    if not all(v for k, v in counts.items() if k != "ncc_sweep_mma") or counts["ncc_sweep_mma"]:
         raise AssertionError(f"golden pages did not launch every kernel: {counts}")
     log(f"[golden] {len(golden)} pages: {sum(map(len, got))} lines identical to focr_tpu's; "
         f"launches {counts}")
@@ -1974,7 +2156,8 @@ def main() -> int:
         waits = ncc_model.HOST_WAITS
         native_calls = {k: ncc_cpu.NATIVE_CALLS[k] for k in ("replay_group", "post_sort_winners")}
         # K3 replays every group K1 swept; the host replay is off the path
-        if (rc != 0 or not all(launches.values()) or native_calls["replay_group"]
+        if (rc != 0 or not all(v for k, v in launches.items() if k != "ncc_sweep_mma")
+                or launches["ncc_sweep_mma"] or native_calls["replay_group"]
                 or not native_calls["post_sort_winners"]
                 or launches["ncc_replay"] != launches["ncc_sweep"]):
             raise AssertionError(f"in-process CLI: rc {rc}, launches {launches}, host library "
@@ -2028,6 +2211,16 @@ def main() -> int:
             ("compact_hits", "ncc_compact.cu", "focr_tpu/ops/pallas_ncc.py:436"),
         )
     ]
+    # K1's entry: its device time, and each design with its own launches (the
+    # main path's shapes take the wgmma one; the mma one is timed on a shape
+    # that takes it)
+    kernels[0].update(device_ms=k1_device_ms, instances=[
+        {"name": "focr_ncc_sweep_kernel", "design": "wgmma", "launches": launches["ncc_sweep"],
+         "shapes": "every shape of the main path",
+         "sass_gmma_per_instance": sorted(k1_gmma.values())},
+        {"name": "focr_ncc_sweep_mma_kernel", "design": "mma.sync m16n8k32",
+         "launches": launches["ncc_sweep_mma"],
+         **{k: v for k, v in k1_mma.items() if k != "edge_max_abs_err"}}])
     # K2's entry: count + wait + emit; its count kernel's own launches and
     # each kernel's time alone beside it
     kernels[1].update(k2_parts, count_launches=launches["compact_count"],

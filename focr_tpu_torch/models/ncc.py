@@ -69,9 +69,11 @@ from focr_tpu_torch.ops.ncc_kernels import (
     compact_counts,
     compact_emit,
     ncc_sweep,
-    pack_needle_fragments,
+    pack_needles,
     split_counts,
+    sweep_plan,
     sweep_terms,
+    sweep_tier,
     to_host,
 )
 from focr_tpu_torch.ops.replay_kernels import (
@@ -298,7 +300,7 @@ def _group_needles(needles: list[Needle]) -> list[_Group]:
 @dataclass(frozen=True)
 class DeviceGroup:
     """One size group's needle bank on the device, with the sweep's derived
-    per-needle f32 terms and K1's packing of the bank."""
+    per-needle f32 terms and the bank packed for K1's plan."""
 
     bank: torch.Tensor  # [T, nh, nw] u8
     s_n: torch.Tensor  # [T] i64
@@ -306,7 +308,7 @@ class DeviceGroup:
     sn_n: torch.Tensor  # [T] f32 Σn / n
     rtn: torch.Tensor  # [T] f32 √norm², +inf for zero-variance needles
     thr_eps: float  # f32(threshold) − f32(ε), exactly representable in f32
-    afrag: torch.Tensor  # int32 [ceil(T/16), nks, 32, 4] pack_needle_fragments(bank)
+    packed: torch.Tensor  # pack_needles(bank, sweep_plan(...)): K1's B (wgmma) or A (mma)
     replay: ReplayNeedles  # bank, s_n and s2_n as K3 takes them, checked once
 
     @property
@@ -327,11 +329,12 @@ def group_from_numpy(
     s2_n_t = torch.from_numpy(np.ascontiguousarray(s2_n, dtype=np.int64))
     n = bank_t.shape[1] * bank_t.shape[2]
     sn_n, rtn, thr_eps = sweep_terms(s_n_t, s2_n_t, n, threshold)
+    plan = sweep_plan(*bank_t.shape[1:], sweep_tier(n, threshold))
     bank_d, s_n_d, s2_n_d = bank_t.to(device), s_n_t.to(device), s2_n_t.to(device)
     return DeviceGroup(
         bank=bank_d, s_n=s_n_d, s2_n=s2_n_d,
         sn_n=sn_n.to(device), rtn=rtn.to(device), thr_eps=thr_eps,
-        afrag=pack_needle_fragments(bank_t).to(device),
+        packed=pack_needles(bank_t, plan).to(device),
         replay=replay_needles(bank_d, s_n_d, s2_n_d),
     )
 
@@ -753,7 +756,7 @@ class NccMatcher:
                     tg = time.perf_counter()
                     mask, rcnt = ncc_sweep(
                         inv_dev, dg.bank, dg.s_n, dg.s2_n, self.threshold, terms=dg.terms,
-                        afrag=dg.afrag,
+                        packed=dg.packed,
                     )
                     row_off, head = compact_counts(rcnt)
                     _count_host_wait()

@@ -145,7 +145,7 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.focr_ncc_sweep.argtypes = [p, i, i, i, p, i, i, i, p, p, f, f, p, p, p, i, f, f, f]
+    lib.focr_ncc_sweep.argtypes = [p, i, i, i, p, i, i, i, p, p, f, f, p, p, p, i, f, f, f, i]
     lib.focr_ncc_sweep.restype = i
     lib.focr_ncc_compact_count.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
     lib.focr_ncc_compact_count.restype = i

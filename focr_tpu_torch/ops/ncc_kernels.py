@@ -10,7 +10,7 @@ Semantics (pallas_ncc.py:12-20): the sweep's mask is an ε-superset of the
 reference's accept set over the search domain y >= 1, x >= 1; K3
 (ops/replay_kernels.py) replays every candidate in exact f64 on the card, so
 results are bit-identical to the oracle. The sweep has two tiers (``sweep_tier``), each an instance of
-the one kernel:
+the kernel:
 
   narrow — focr_tpu's Pallas test (pallas_ncc.py:205-220), division-free,
            num > (thr−ε) · rtn · sqrt(max(norm2p − 8, 0)) − 48; it holds for
@@ -22,9 +22,18 @@ the one kernel:
            covers the roundings.
 
 Past n·65025 >= 2³¹ both versions raise, as focr_tpu cannot run there.
+
+K1 has two designs (csrc/ncc_sweep.cu), picked by ``sweep_plan`` from the
+shape alone: the wgmma instance for every shape whose needles' k-steps fit
+its registers (every shape of the main path), and PR 5's mma.sync instance
+for the rest (very tall or wide needles). Each packs the needles its own way
+once a bank (``pack_needles``) and counts its launches under its own key.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -33,7 +42,12 @@ from focr_tpu_torch.ops.ncc import window_stats, word_stride
 from focr_tpu_torch.utils.device import count_launch, launch_stream
 
 EPS = 1e-3
-LAUNCHES = {"ncc_sweep": 0, "compact_count": 0, "compact_hits": 0}
+# K1's wgmma instance under "ncc_sweep", its mma instance under "ncc_sweep_mma"
+LAUNCHES = {"ncc_sweep": 0, "ncc_sweep_mma": 0, "compact_count": 0, "compact_hits": 0}
+# the wgmma instance's constants, as csrc/ncc_sweep.cu declares them: needles
+# a wgmma (WG_N: B's sub-chunks) and k-steps of A held in registers by tier
+WG_N = 128
+WG_KA = {"narrow": 8, "wide": 12}
 COMPACT_CHUNK = 1024 * 8  # csrc/ncc_compact.cu's CHUNK: mask rows a count block scans
 
 
@@ -222,7 +236,7 @@ def k_steps(nh: int, nw: int) -> int:
 
 
 def fragment_index(T: int, nh: int, nw: int) -> np.ndarray:
-    """Where each byte of the kernel's A fragments comes from: int64
+    """Where each byte of the mma instance's A fragments comes from: int64
     [ceil(T/16), nks, 32, 16], byte 4i+j of lane L's four registers for
     (M-tile mt, k-step s) is the flat index into needles [T, nh, nw] of its
     needle byte, or T·nh·nw for a zero byte.
@@ -245,13 +259,84 @@ def fragment_index(T: int, nh: int, nw: int) -> np.ndarray:
 
 
 def pack_needle_fragments(needles: torch.Tensor) -> torch.Tensor:
-    """[T, nh, nw] u8 -> the kernel's A operand, int32 [ceil(T/16), nks, 32,
-    4] on the needles' device: one uint4 fragment a lane for each (M-tile,
-    k-step), laid out by fragment_index. The matcher packs each needle group
-    once (models/ncc.py::DeviceGroup)."""
+    """[T, nh, nw] u8 -> the mma instance's A operand, int32 [ceil(T/16),
+    nks, 32, 4] on the needles' device: one uint4 fragment a lane for each
+    (M-tile, k-step), laid out by fragment_index."""
     idx = torch.from_numpy(fragment_index(*needles.shape)).to(needles.device)
     flat = torch.cat([needles.reshape(-1), needles.new_zeros(1)])
     return flat[idx].view(torch.int32)
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """K1's instance for one shape (``sweep_plan``): "wgmma" or "mma", and
+    the needles' k-steps."""
+
+    instance: str
+    nks: int
+
+    @property
+    def key(self) -> str:
+        """Its name in LAUNCHES."""
+        return "ncc_sweep" if self.instance == "wgmma" else "ncc_sweep_mma"
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_plan(nh: int, nw: int, tier: str) -> SweepPlan:
+    """The static plan of K1 for needles of nh x nw in ``tier``: the wgmma
+    instance where the needle's k-steps fit its registers (WG_KA), else the
+    mma instance. The launcher sizes the wgmma blocks itself (up to 256
+    needles, the rest on grid.z; every such block fits shared memory)."""
+    nks = k_steps(nh, nw)
+    return SweepPlan("wgmma" if nks <= WG_KA[tier] else "mma", nks)
+
+
+def tile_index(T: int, nh: int, nw: int) -> np.ndarray:
+    """Where each byte of the wgmma instance's B comes from: int64
+    [ceil(T/n), nks, 32·n] for n = WG_N needles a wgmma; byte o of (sub-chunk
+    c, k-step s) is the flat index into needles [T, nh, nw] of its needle
+    byte, or T·nh·nw for a zero byte.
+
+    wgmma's canonical K-major layout without swizzle: core matrices of 8
+    needles x 16 bytes, 128 contiguous bytes; the two core matrices of a
+    k-step's 32 bytes 128 apart (LBO), consecutive groups of 8 needles 256
+    apart (SBO). So byte o is needle n·c + 8·(o >> 8) + ((o >> 4) & 7) and
+    k-byte 16·((o >> 7) & 1) + (o & 15) of k-step s, i.e. k-word w = 8s +
+    kbyte/4, needle word (dy, q) = divmod(w, ceil(nw/4)) and pixel dx = 4q +
+    kbyte % 4. Bytes past nw, past the needle's last word and past T are
+    zero."""
+    nks, nw4, n = k_steps(nh, nw), -(-nw // 4), WG_N
+    c, s, o = np.ix_(np.arange(-(-T // n)), np.arange(nks), np.arange(n * 32))
+    t = n * c + 8 * (o >> 8) + ((o >> 4) & 7)
+    kb = 16 * ((o >> 7) & 1) + (o & 15)
+    w = 8 * s + (kb >> 2)
+    dy, dx = w // nw4, 4 * (w % nw4) + (kb & 3)
+    idx = (t * nh + dy) * nw + dx
+    return np.where((t < T) & (dy < nh) & (dx < nw), idx, T * nh * nw)
+
+
+def pack_needle_tiles(needles: torch.Tensor) -> torch.Tensor:
+    """[T, nh, nw] u8 -> the wgmma instance's B, u8 [ceil(T/WG_N), nks,
+    32·WG_N] on the needles' device, laid out by tile_index: a block copies
+    its sub-chunks into shared memory as they are."""
+    idx = torch.from_numpy(tile_index(*needles.shape)).to(needles.device)
+    flat = torch.cat([needles.reshape(-1), needles.new_zeros(1)])
+    return flat[idx]
+
+
+def pack_needles(needles: torch.Tensor, plan: SweepPlan) -> torch.Tensor:
+    """The needles as ``plan``'s instance takes them: pack_needle_tiles for
+    the wgmma instance, pack_needle_fragments for the mma instance. The
+    matcher packs each needle group once (models/ncc.py::DeviceGroup)."""
+    if plan.instance == "wgmma":
+        return pack_needle_tiles(needles)
+    return pack_needle_fragments(needles)
+
+
+def _packed_shape(T: int, plan: SweepPlan) -> tuple[tuple[int, ...], torch.dtype]:
+    if plan.instance == "wgmma":
+        return (-(-T // WG_N), plan.nks, WG_N * 32), torch.uint8
+    return (-(-T // 16), plan.nks, 32, 4), torch.int32
 
 
 def ncc_sweep(
@@ -262,22 +347,28 @@ def ncc_sweep(
     threshold: float,
     eps: float = EPS,
     terms: tuple | None = None,
-    afrag: torch.Tensor | None = None,
+    packed: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 (csrc/ncc_sweep.cu) for CUDA tensors, ncc_sweep_reference for CPU
-    tensors; the needles' tier picks the kernel's instance. ``terms`` and
-    ``afrag``: precomputed sweep_terms and pack_needle_fragments of these
-    needles (the matcher's device groups carry them)."""
+    tensors; the needles' tier picks the test's instance and sweep_plan the
+    design (wgmma or mma). ``terms`` and ``packed``: precomputed sweep_terms
+    and pack_needles of these needles for their plan (the matcher's device
+    groups carry them). The wgmma instance reads the pages as 4-byte words:
+    ``imgs`` must start 4-byte aligned."""
     if imgs.device.type == "cpu":
         return ncc_sweep_reference(imgs, needles, s_n, s2_n, threshold, eps, terms)
     if imgs.device.type != "cuda":
         raise ValueError(f"ncc_sweep: unsupported device {imgs.device}")
     B, H, W, T, nh, nw = _sweep_shapes(imgs, needles)
     n = nh * nw
-    wide = sweep_tier(n, threshold, eps) == "wide"
+    tier = sweep_tier(n, threshold, eps)
+    wide = tier == "wide"
     for name, t, dt in (("imgs", imgs, torch.uint8), ("needles", needles, torch.uint8)):
         if t.dtype != dt or not t.is_contiguous() or t.device != imgs.device:
             raise ValueError(f"ncc_sweep: {name} must be contiguous {dt} on {imgs.device}")
+    plan = sweep_plan(nh, nw, tier)
+    if plan.instance == "wgmma" and imgs.data_ptr() % 4:
+        raise ValueError("ncc_sweep: imgs must start 4-byte aligned")
     sn_n, rtn, thr_eps = terms if terms is not None else sweep_terms(
         s_n, s2_n, n, threshold, eps
     )
@@ -286,28 +377,35 @@ def ncc_sweep(
     Hs = H - nh + 1
     NW = word_stride(W, nw)
     mask = torch.empty((B, T, Hs, NW), dtype=torch.int32, device=imgs.device)
-    rcnt = torch.zeros((B, T, Hs), dtype=torch.int32, device=imgs.device)
+    # the wgmma instance writes every row count; the mma instance adds to them
+    rcnt = (torch.empty if plan.instance == "wgmma" else torch.zeros)(
+        (B, T, Hs), dtype=torch.int32, device=imgs.device)
     inv_n, err, c_den, slack = (
         wide_scalars(n, thr_eps) if wide else (float(np.float32(1.0 / n)), 0.0, 0.0, 0.0)
     )
-    if afrag is None:
-        afrag = pack_needle_fragments(needles)
-    if tuple(afrag.shape) != (-(-T // 16), k_steps(nh, nw), 32, 4) or (
-        afrag.dtype != torch.int32 or not afrag.is_contiguous() or afrag.device != imgs.device
+    if packed is None:
+        packed = pack_needles(needles, plan)
+    shape, dtype = _packed_shape(T, plan)
+    if tuple(packed.shape) != shape or (
+        packed.dtype != dtype or not packed.is_contiguous() or packed.device != imgs.device
     ):
-        raise ValueError("ncc_sweep: afrag must be pack_needle_fragments(needles)")
+        raise ValueError(f"ncc_sweep: packed must be pack_needles(needles) for the "
+                         f"{plan.instance} instance")
+    if packed.data_ptr() % 16:
+        raise ValueError("ncc_sweep: packed must start 16-byte aligned")
     from focr_tpu_torch.native.build import load
 
     with launch_stream(imgs) as stream:
         rc = load().focr_ncc_sweep(
-            imgs.data_ptr(), B, H, W, afrag.data_ptr(), T, nh, nw,
+            imgs.data_ptr(), B, H, W, packed.data_ptr(), T, nh, nw,
             sn_n.data_ptr(), rtn.data_ptr(), thr_eps, inv_n,
             mask.data_ptr(), rcnt.data_ptr(), stream,
             int(wide), err, c_den, slack,
+            int(plan.instance == "mma"),
         )
     if rc != 0:
         raise RuntimeError(f"ncc_sweep kernel launch failed: CUDA error {rc}")
-    count_launch(LAUNCHES, "ncc_sweep")
+    count_launch(LAUNCHES, plan.key)
     return mask, rcnt
 
 

@@ -84,12 +84,34 @@ def test_kernels_match_plain_versions(cuda, case):
     mask, rcnt = ncc_kernels.ncc_sweep(*args, thr)
     out = ncc_kernels.compact_hits(mask, rcnt)
     torch.cuda.synchronize()
-    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 1, "compact_count": 1, "compact_hits": 1}
+    # K1's instance is the plan's: wgmma but for the needles too tall for it
+    key = ncc_kernels.sweep_plan(nh, nw, ncc_kernels.sweep_tier(nh * nw, thr)).key
+    assert key == ("ncc_sweep_mma" if case == "huge-150x150" else "ncc_sweep")
+    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 0, "ncc_sweep_mma": 0, key: 1,
+                                    "compact_count": 1, "compact_hits": 1}
     mask_r, rcnt_r = ncc_kernels.ncc_sweep_reference(*args, thr)
     assert torch.equal(mask, mask_r) and torch.equal(rcnt, rcnt_r)
     out_r = ncc_kernels.compact_hits_reference(mask, rcnt)
     assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out, out_r))
     assert int(out[3].sum()) > 0
+
+
+@pytest.mark.parametrize("order", [
+    ("page-13x9", "dense-13x8", "small-13x9", "t20-21x13", "page-13x9", "many-T600-13x9"),
+    ("many-T300-wide", "small-13x9", "edge-T17-nw5-narrow-page", "dense-13x8", "small-13x9"),
+])
+def test_sweep_shapes_in_turns_match_plain_version(cuda, order):
+    """K1's wgmma launches in turns over shapes whose blocks take different
+    shared memory (the launcher keeps each shape's resident blocks): each
+    call's mask and row counts are the plain version's."""
+    for case in order:
+        B, H, W, T, nh, nw, thr, seed, density = CASES[case]
+        args = [torch.from_numpy(a).to(cuda) for a in _inputs(B, H, W, T, nh, nw, seed, density)]
+        assert ncc_kernels.sweep_plan(nh, nw, ncc_kernels.sweep_tier(nh * nw, thr)).instance \
+            == "wgmma"
+        mask, rcnt = ncc_kernels.ncc_sweep(*args, thr)
+        mask_r, rcnt_r = ncc_kernels.ncc_sweep_reference(*args, thr)
+        assert torch.equal(mask, mask_r) and torch.equal(rcnt, rcnt_r), case
 
 
 @pytest.mark.parametrize("max_matches", [1024, 3])
@@ -172,7 +194,7 @@ def test_compaction_edge_cases(cuda, case):
     out_r = ncc_kernels.compact_hits_reference(mask, rcnt)
     assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out, out_r))
     total = int(bits.sum())
-    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 0, "compact_count": 2,
+    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 0, "ncc_sweep_mma": 0, "compact_count": 2,
                                     "compact_hits": 1 if total else 0}
     assert (total == 0) == (case == "no-candidates")
     if case == "blank-page":

@@ -244,7 +244,8 @@ def test_cpu_wrappers_count_no_launches():
     row_off, head = ncc_kernels.compact_counts(rcnt)
     ncc_kernels.compact_emit(mask, rcnt, row_off, int(head[:8 * (mask.shape[0] + 1)]
                                                      .view(torch.int64)[-1]))
-    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 0, "compact_count": 0, "compact_hits": 0}
+    assert ncc_kernels.LAUNCHES == {"ncc_sweep": 0, "ncc_sweep_mma": 0, "compact_count": 0,
+                                    "compact_hits": 0}
 
 
 def test_compact_chunk_matches_kernel():

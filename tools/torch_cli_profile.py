@@ -6,6 +6,8 @@ the repo, in turns.
     python tools/torch_cli_profile.py compare OTHER_ROOT [--runs N] # pages/s in turns
     python tools/torch_cli_profile.py kernels OTHER_ROOT            # K1-K4 in turns
     python tools/torch_cli_profile.py replay-warps                  # K3 by warps a segment
+    python tools/torch_cli_profile.py sweep-tiles                   # K1 by its launch shape
+    python tools/torch_cli_profile.py trace-marker                  # K1 launches a trace holds
     python tools/torch_cli_profile.py ssd-partial-blocks            # K4p by cells a block
     python tools/torch_cli_profile.py pool [depth] [--runs N]       # ncc pool and depth settings
     python tools/torch_cli_profile.py summary OUTPUT_FILE           # medians of a run's lines
@@ -36,15 +38,31 @@ compare — runs ``time`` in a fresh process for OTHER_ROOT, this root, this
     pipeline), and prints each process's pages/s. OTHER_ROOT is a checkout
     of the package (``git archive`` of a commit, or a variant's copy under
     ``_checkout/``), imported in place of this one.
-kernels — the same turns, each process timing K1, K2 (``compact_hits``:
-    everything the main path runs between K1 and the positions) and K3 (the
-    call, and its device time from a torch.profiler trace) at the ncc
+kernels — the same turns, each process timing K1 and K3 (each the call, and
+    its device time from a torch.profiler trace), K2 (``compact_hits``:
+    everything the main path runs between K1 and the positions) at the ncc
     main path's shapes — the first wave of the ncc fixture, inverted and
     ink-cropped as the matcher does, against both needle groups — and K4 on
     the focr fixture's 16 pages cropped as the decoder crops them (each held
     bit for bit against its plain version first; the best of 5 means of 20
     calls, CUDA events). Each process builds its kernels with the register
     report (stderr).
+sweep-tiles — K1's device time (torch.profiler, 20 calls) on the same ncc
+    wave, both needle groups, for each launch shape of its wgmma instance in
+    SWEEP_TILE_SETTINGS (needles a wgmma, window rows an item, windows a
+    column chunk): each shape is a copy of the package with those constants
+    edited into csrc/ncc_sweep.cu (and the packer's WG_N), built and timed in
+    a process of its own (tools/torch_k1_probes.py), its mask and row counts
+    first held bit for bit against the plain version; the fastest in sum over
+    the groups is the choice behind the source's WG_N, ROWS and COLS; then,
+    as built here, K1's wide instance on a -t 20 wave's shape (2 pages, 74
+    needles of 21x13). The band is always double-buffered (two stages): its
+    copy is not on the path that waits.
+trace-marker — six torch.profiler traces of the ncc CLI's 64-page run for
+    each of three places of a K1 marker launch on the caller's stream
+    (first, after a fill kernel, last), in turns: the K1 launches each trace
+    holds by stream (chip_smoke.py phase 13 reads the caller's stream from
+    such a marker).
 replay-warps — K3's device time (torch.profiler, 20 calls) on the same ncc
     wave at 1 to ``replay_kernels.MAX_WARPS`` warps a (page, needle) segment,
     each count's output first held bit for bit against the plain version;
@@ -348,7 +366,9 @@ def time_kernels(root: str) -> None:
     for g in groups:
         dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, 0.8, x.device)
         args = (x, dg.bank, dg.s_n, dg.s2_n, 0.8)
-        mask, rcnt = K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag)
+        # the bank as the checkout's K1 takes it (PR 12's: fragment order)
+        kw = {"packed": dg.packed} if hasattr(dg, "packed") else {"afrag": dg.afrag}
+        mask, rcnt = K.ncc_sweep(*args, terms=dg.terms, **kw)
         mask_r, rcnt_r = K.ncc_sweep_reference(*args, terms=dg.terms)
         if not (torch.equal(mask, mask_r) and torch.equal(rcnt, rcnt_r)):
             raise AssertionError(f"K1 differs from its plain version ({g.nw}x{g.nh})")
@@ -356,7 +376,9 @@ def time_kernels(root: str) -> None:
                                                     K.compact_hits_reference(mask, rcnt))):
             raise AssertionError(f"K2 differs from its plain version ({g.nw}x{g.nh})")
         name = f"{g.nw}x{g.nh}"
-        out[f"k1_{name}"] = _best_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, afrag=dg.afrag), B)
+        out[f"k1_{name}"] = _best_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, **kw), B)
+        out[f"k1dev_{name}"] = _device_ms(lambda: K.ncc_sweep(*args, terms=dg.terms, **kw),
+                                          "focr_ncc_sweep", B)
         out[f"k2_{name}"] = _best_ms(lambda: K.compact_hits(mask, rcnt), B)
         if hasattr(K, "compact_counts"):  # K2's two kernels alone, without the wait
             row_off, head = K.compact_counts(rcnt)
@@ -388,7 +410,7 @@ def time_kernels(root: str) -> None:
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"K4 differs from its plain version (h={grp.crop_h})")
         out[f"k4_h{grp.crop_h}"] = _best_ms(lambda: fwd(strips), len(fpages))
-    for k in ("k1", "k2", "k2count", "k2emit", "k3", "k3dev", "k4"):
+    for k in ("k1", "k1dev", "k2", "k2count", "k2emit", "k3", "k3dev", "k4"):
         out[f"{k}_total"] = sum(v for n, v in out.items() if n.startswith(f"{k}_"))
     out["card"] = _card()
     print(json.dumps(out), flush=True)
@@ -410,7 +432,7 @@ def replay_warps() -> None:
         for g in groups:
             dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, 0.8, x.device)
             mask, rcnt = K.ncc_sweep(x, dg.bank, dg.s_n, dg.s2_n, 0.8, terms=dg.terms,
-                                     afrag=dg.afrag)
+                                     packed=dg.packed)
             pos, off, hcnt, _ = K.compact_hits(mask, rcnt)
             tail = (float(np.float32(0.8)), y0, x0, 1024)
             want = R.replay_hits(R.ncc_replay_reference(
@@ -433,6 +455,162 @@ def replay_warps() -> None:
         R.WARPS = kept
     out["card"] = _card()
     print(json.dumps(out), flush=True)
+
+
+# (needles a wgmma, window rows an item, windows a column chunk)
+SWEEP_TILE_SETTINGS = ((128, 1, 128), (128, 1, 256), (128, 2, 64), (128, 2, 128), (128, 2, 256),
+                       (128, 4, 64), (128, 4, 128), (128, 4, 256), (128, 8, 64), (128, 8, 128),
+                       (64, 2, 128), (64, 2, 256), (64, 4, 64), (64, 4, 128))
+SWEEP_SRC = os.path.join("focr_tpu_torch", "csrc", "ncc_sweep.cu")
+KERNELS_PY = os.path.join("focr_tpu_torch", "ops", "ncc_kernels.py")
+
+
+def _wgmma_asm(n: int) -> str:
+    """wgmma_u8's asm statement at m64n{n}k32: n/2 accumulators a thread."""
+    r = n // 2
+    regs = ", ".join(f"%{i}" for i in range(r))
+    outs = ", ".join(f'"+r"(d[{i}])' for i in range(r))
+    return ("    asm volatile(\n"
+            f'        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"\n'
+            f'        "wgmma.mma_async.sync.aligned.m64n{n}k32.s32.u8.u8 {{{regs}}}, '
+            f'{{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p;\\n}}\\n"\n'
+            f"        : {outs}\n"
+            '        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));')
+
+
+def _tile_edits(n: int, rows: int, cols: int) -> dict:
+    """The edits that rebuild K1 at ``n`` needles a wgmma (the packer's WG_N
+    too), ``rows`` window rows an item and ``cols`` windows a column chunk."""
+    import re
+
+    def sweep(src: str) -> str:
+        for name, v in (("WG_N", n), ("ROWS", rows), ("COLS", cols)):
+            src, k = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {v};", src)
+            if k != 1:
+                raise RuntimeError(f"sweep-tiles: no single constant {name} in {SWEEP_SRC}")
+        a = src.index("    static_assert(WG_N == 128")
+        b = src.index('"r"(accumulate));', a) + len('"r"(accumulate));')
+        return src[:a] + _wgmma_asm(n) + src[b:]
+
+    def packer(src: str) -> str:
+        src, k = re.subn(r"^WG_N = \d+$", f"WG_N = {n}", src, flags=re.M)
+        if k != 1:
+            raise RuntimeError(f"sweep-tiles: no single WG_N in {KERNELS_PY}")
+        return src
+
+    return {SWEEP_SRC: sweep, KERNELS_PY: packer}
+
+
+def sweep_tiles() -> None:
+    """K1's device ms/page on the ncc wave by its wgmma launch shape, each
+    shape a rebuilt copy of the package (tools/torch_k1_probes.py)."""
+    import re
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import torch_k1_probes as P
+
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.ops import ncc_kernels as K
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    with open(os.path.join(HERE, SWEEP_SRC)) as f:
+        consts = dict(re.findall(r"constexpr int (ROWS|COLS|WG_N) = (\d+);", f.read()))
+    kept = [int(consts[k]) for k in ("WG_N", "ROWS", "COLS")]
+    out = {"kept": kept, "device_ms_by_setting": {}}
+    names = [f"tiles-n{n}-{rows}x{cols}" for n, rows, cols in SWEEP_TILE_SETTINGS]
+    roots = [P.make(name, _tile_edits(*setting))
+             for name, setting in zip(names, SWEEP_TILE_SETTINGS)]
+    P.build_all(roots)
+    for name, root, (n, rows, cols) in zip(names, roots, SWEEP_TILE_SETTINGS):
+        res = P.run_measure(name, root, exact=True)
+        by = {k[: -len("_device_ms")]: v for k, v in res.items() if k.endswith("_device_ms")}
+        by["total"] = sum(by.values())
+        out["device_ms_by_setting"][f"n{n}_{rows}x{cols}"] = by
+        print(json.dumps({"n": n, "rows": rows, "cols": cols, **by}), flush=True)
+    best = min(out["device_ms_by_setting"].items(), key=lambda kv: kv[1]["total"])
+    out["fastest"] = best[0]
+    # the wide instance as built here: a -t 20 wave, 74 needles of 21x13
+    x, _, _, _ = _ncc_wave()
+    rng = np.random.default_rng(32)
+    imgs = ((rng.random((2, 792, 662)) < 0.15) * rng.integers(0, 256, (2, 792, 662))
+            ).astype(np.uint8)
+    needles = rng.integers(0, 256, (74, 21, 13), dtype=np.uint8)
+    dg = ncc_model.group_from_numpy(needles, needles.reshape(74, -1).astype(np.int64).sum(1),
+                                    (needles.reshape(74, -1).astype(np.int64) ** 2).sum(1),
+                                    0.8, x.device)
+    args = (torch.from_numpy(imgs).cuda(), dg.bank, dg.s_n, dg.s2_n, 0.8)
+    got = K.ncc_sweep(*args, terms=dg.terms, packed=dg.packed)
+    ref = K.ncc_sweep_reference(*args, terms=dg.terms)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError("K1's wide instance differs from its plain version")
+    out["wide_21x13_device_ms"] = _device_ms(
+        lambda: K.ncc_sweep(*args, terms=dg.terms, packed=dg.packed), "focr_ncc_sweep", 2)
+    out["card"] = _card()
+    print(json.dumps(out), flush=True)
+
+
+TRACE_MARKER_LAYOUTS = ("first", "after-fill", "last")
+
+
+def trace_marker(traces: int = 6) -> None:
+    """How often a torch.profiler trace of the ncc CLI's 64-page run (the
+    fixture's pages four times) holds each of its K1 launches, with one more
+    K1 launch on the caller's stream as a marker placed three ways: first in
+    the trace, after a fill kernel on the caller's stream (and a second fill
+    after the run), or last, after the run. ``traces`` traces a layout, the
+    layouts in turns; one line a trace: K1 launches by stream."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from focr_tpu_torch.models import ncc as ncc_model
+    from focr_tpu_torch.ops import ncc_kernels as K
+
+    x, groups, _, _ = _ncc_wave()
+    g = groups[0]
+    dg = ncc_model.group_from_numpy(g.bank, g.s_n, g.s2_n, 0.8, x.device)
+    strip = x[:1, :64]
+    pad = torch.empty(1 << 10, dtype=torch.int32, device=x.device)
+
+    def marker():
+        K.ncc_sweep(strip, dg.bank, dg.s_n, dg.s2_n, 0.8, terms=dg.terms, packed=dg.packed)
+
+    with _cli("ncc") as (main, argv, n), tempfile.TemporaryDirectory() as tmp:
+        av = _argv("ncc", argv[1 : 1 + n] * 4)
+        _run(main, av)
+        marker()
+        trace_path = os.path.join(tmp, "trace.json")
+        for turn in range(traces):
+            for layout in TRACE_MARKER_LAYOUTS:
+                torch.cuda.synchronize()
+                with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    if layout == "after-fill":
+                        pad.fill_(1)
+                        torch.cuda.synchronize()
+                    if layout != "last":
+                        marker()
+                        torch.cuda.synchronize()
+                    _run(main, av)
+                    if layout == "last":
+                        marker()
+                    if layout == "after-fill":
+                        pad.fill_(2)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(trace_path)
+                with open(trace_path) as f:
+                    events = json.load(f)["traceEvents"]
+                by_stream = {}
+                for e in events:
+                    if e.get("cat") == "kernel" and "focr_ncc_sweep_kernel" in e.get("name", ""):
+                        st = str(e["args"].get("stream"))
+                        by_stream[st] = by_stream.get(st, 0) + 1
+                print(json.dumps({"layout": layout, "turn": turn, "k1_by_stream": by_stream,
+                                  "launched": 1 + len(groups) * -(-n * 4 // ncc_model.WAVE),
+                                  "card": _card()}), flush=True)
 
 
 PARTIAL_BLOCK_SETTINGS = (1, 2, 4, 6, 8, 12, 16)  # cells (warps) a K4p block
@@ -698,6 +876,12 @@ def main() -> int:
     elif mode == "replay-warps":
         sys.path.insert(0, HERE)
         replay_warps()
+    elif mode == "sweep-tiles":
+        sys.path.insert(0, HERE)
+        sweep_tiles()
+    elif mode == "trace-marker":
+        sys.path.insert(0, HERE)
+        trace_marker()
     elif mode == "ssd-partial-blocks":
         sys.path.insert(0, HERE)
         ssd_partial_blocks()
