@@ -115,7 +115,8 @@ Phases, each of which raises on failure:
                CLI opened; the bank load's ms when every height is asked for
                (what the eager load did) and when only those two are
  15. metrics — the focr and ncc CLIs with --metrics-json and --profile: the
-               JSON has exactly focr_tpu's keys and decoded_pages 16, the
+               JSON has exactly focr_tpu's keys (focr's with its byte
+               counters besides) and decoded_pages 16, the
                trace file names a focr_ kernel, stdout is unchanged by both
                flags; --verbose-sync on one golden page prints the measured
                label on every group line and the golden lines on stdout;
@@ -1326,7 +1327,7 @@ def metrics_phase(cases: dict, pages, golden, want16: str) -> None:
         runs = (
             ("focr", focr_main, *cases["focr"],
              {"tool", "pages", "decoded_pages", "lines", "errors", "decode_seconds",
-              "pages_per_sec"}),
+              "pages_per_sec", "counters"}),
             ("ncc", ncc_main, ncc_argv, want16,
              {"tool", "pages", "decoded_pages", "lines", "hits", "errors", "search_seconds",
               "engine"}),

@@ -44,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fail on the first unreadable page (reference panic semantics); "
                         "default isolates per-page errors to stderr and continues")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the decode to DIR")
+                   help="write a torch.profiler trace of the call, from the bank load "
+                        "to the last line, to DIR")
     p.add_argument("--metrics-json", default=None, metavar="PATH",
                    help="write structured run metrics (JSON) to PATH ('-' = stderr)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -63,10 +64,13 @@ def main(argv: list[str] | None = None) -> int:
     from focr_tpu_torch.io.images import (
         load_gray, load_gray_many, load_gray_many_isolated, save_rgb, save_rgba,
     )
-    from focr_tpu_torch.models.focr import _cached_decoder, decode_pages, decode_single_stream
+    from focr_tpu_torch.models.focr import _cached_decoder, decode_pages, decode_single_chunks
     from focr_tpu_torch.utils.device import resolve_device
-    from focr_tpu_torch.utils.metrics import metrics_run, write_metrics
+    from focr_tpu_torch.utils.metrics import (
+        COUNTERS, metrics_run, profiling, reset_counters, span, write_metrics,
+    )
 
+    reset_counters("bank_bytes_loaded", "strip_bytes_uploaded")
     if args.verify is not None:
         assert os.path.isdir(args.verify), "--verify should be a dir"
 
@@ -96,77 +100,84 @@ def main(argv: list[str] | None = None) -> int:
         print(f"focr: error: {e}", file=sys.stderr)
         return 2
 
-    banks = None
-    if args.grid_bank is not None:
-        banks, saved = load_grid_bank(args.grid_bank)
-        want = grid_bank_settings(args.font, args.alphabet, ropts, args.width, saved["kind"])
-        if saved != want:
-            print(f"focr: error: {args.grid_bank} was rendered with {saved}, "
-                  f"the flags ask for {want}", file=sys.stderr)
-            return 2
-        missing = sorted(set(range(1, args.line_height + 1)) - set(banks))
-        if missing:
-            print(f"focr: error: {args.grid_bank} has no bank for crop heights {missing}",
-                  file=sys.stderr)
-            return 2
-    # the font itself is opened only when something renders with FreeType: the
-    # banks, without a saved set, and --verify's overlay
-    face = Face(args.font) if banks is None or args.verify is not None else None
+    # the operator's trace (--profile) holds the whole call: bank load to last line
+    with profiling(args.profile, device.type == "cuda"):
+        banks = None
+        if args.grid_bank is not None:
+            with span("focr_bank_open"):
+                banks, saved = load_grid_bank(args.grid_bank)
+                want = grid_bank_settings(args.font, args.alphabet, ropts, args.width,
+                                          saved["kind"])
+                if saved != want:
+                    print(f"focr: error: {args.grid_bank} was rendered with {saved}, "
+                          f"the flags ask for {want}", file=sys.stderr)
+                    return 2
+                missing = sorted(set(range(1, args.line_height + 1)) - set(banks))
+                if missing:
+                    print(f"focr: error: {args.grid_bank} has no bank for crop heights {missing}",
+                          file=sys.stderr)
+                    return 2
+        # the font itself is opened only when something renders with FreeType: the
+        # banks, without a saved set, and --verify's overlay
+        face = Face(args.font) if banks is None or args.verify is not None else None
 
-    if args.strict:
-        pages = load_gray_many(args.img)
-        errors: list[tuple[int, str]] = []
-    else:
-        pages, errors = load_gray_many_isolated(args.img)
+        with span("focr_page_read"):
+            if args.strict:
+                pages = load_gray_many(args.img)
+                errors: list[tuple[int, str]] = []
+            else:
+                pages, errors = load_gray_many_isolated(args.img)
         for i, err in errors:
             print(f"ERROR {args.img[i]}: {err}", file=sys.stderr)
 
-    good_idx = [i for i, p in enumerate(pages) if p is not None]
-    good_pages = [pages[i] for i in good_idx]
-    mesh = None
-    if args.mesh == "auto":
-        from focr_tpu_torch.parallel.mesh import auto_mesh
+        good_idx = [i for i, p in enumerate(pages) if p is not None]
+        good_pages = [pages[i] for i in good_idx]
+        mesh = None
+        if args.mesh == "auto":
+            from focr_tpu_torch.parallel.mesh import auto_mesh
 
-        mesh = auto_mesh(device, glyph_shards=args.glyph_shards)
+            mesh = auto_mesh(device, glyph_shards=args.glyph_shards)
 
-    cuda = device.type == "cuda"
-    streamed = len(args.img) == 1 and args.verify is None and bool(good_pages)
-    results: list[list] = [[] for _ in pages]
-    if streamed:
-        # single-image fast path: print each line as soon as its row chunk
-        # is decoded (main.rs:427-440)
-        page = good_pages[0]
-        dec = _cached_decoder(face, args.alphabet, dopts, ropts, page.shape, device, banks,
-                              mesh)
-        with metrics_run(args.profile, cuda) as mrun:
-            for line in decode_single_stream(dec, page):
-                print(line.text, flush=True)
-                results[good_idx[0]].append(line)
-    else:
-        with metrics_run(args.profile, cuda) as mrun:
-            good_results = decode_pages(
-                good_pages, face, args.alphabet, dopts, ropts, device,
-                batch_size=args.batch_size, banks=banks, mesh=mesh,
-            )
-        for i, lines in zip(good_idx, good_results):
-            results[i] = lines
+        streamed = len(args.img) == 1 and args.verify is None and bool(good_pages)
+        results: list[list] = [[] for _ in pages]
+        if streamed:
+            # single-image fast path: print each line as soon as its row chunk
+            # is decoded (main.rs:427-440)
+            page = good_pages[0]
+            dec = _cached_decoder(face, args.alphabet, dopts, ropts, page.shape, device, banks,
+                                  mesh)
+            with metrics_run() as mrun:
+                for lines in decode_single_chunks(dec, page):
+                    with span("focr_print"):
+                        for line in lines:
+                            print(line.text, flush=True)
+                    results[good_idx[0]].extend(lines)
+        else:
+            with metrics_run() as mrun:
+                good_results = decode_pages(
+                    good_pages, face, args.alphabet, dopts, ropts, device,
+                    batch_size=args.batch_size, banks=banks, mesh=mesh,
+                )
+            for i, lines in zip(good_idx, good_results):
+                results[i] = lines
 
-    if args.verify is not None:
-        from focr_tpu_torch.io.overlays import draw_verify, red_blue_mse
+        if args.verify is not None:
+            from focr_tpu_torch.io.overlays import draw_verify, red_blue_mse
 
-        for img_path, page, lines in zip(args.img, pages, results):
-            if page is None:
-                continue
-            overlay = draw_verify(page, lines, face, dopts, ropts)
-            stem = os.path.splitext(os.path.basename(img_path))[0] + ".png"
-            save_rgb(os.path.join(args.verify, stem), overlay)
-            diff = red_blue_mse(overlay)
-            print(f"{img_path} {diff:.6f}", file=sys.stderr)
+            for img_path, page, lines in zip(args.img, pages, results):
+                if page is None:
+                    continue
+                overlay = draw_verify(page, lines, face, dopts, ropts)
+                stem = os.path.splitext(os.path.basename(img_path))[0] + ".png"
+                save_rgb(os.path.join(args.verify, stem), overlay)
+                diff = red_blue_mse(overlay)
+                print(f"{img_path} {diff:.6f}", file=sys.stderr)
 
-    if not streamed:
-        for lines in results:
-            for line in lines:
-                print(line.text)
+        if not streamed:
+            with span("focr_print"):
+                for lines in results:
+                    for line in lines:
+                        print(line.text)
 
     if args.metrics_json is not None:
         write_metrics(
@@ -178,6 +189,7 @@ def main(argv: list[str] | None = None) -> int:
             errors=[{"page": args.img[i], "error": e} for i, e in errors],
             decode_seconds=mrun.seconds,
             pages_per_sec=(len(good_idx) / mrun.seconds) if mrun.seconds else None,
+            counters=dict(COUNTERS),
         )
     return 0
 

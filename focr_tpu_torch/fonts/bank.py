@@ -29,6 +29,7 @@ from focr_tpu_torch.fonts.ft import Canvas, Face, RectF
 from focr_tpu_torch.models.types import BoxSize, RenderOptions
 from focr_tpu_torch.oracle.focr_oracle import advance_px, alphabet_origin
 from focr_tpu_torch.utils import cache
+from focr_tpu_torch.utils.metrics import count, span
 
 
 @dataclass(frozen=True)
@@ -398,7 +399,10 @@ class BankSet(Mapping):
                     raise KeyError(h)
                 if self._z is None:
                     raise ValueError(f"focr bank set: closed before crop height {h} was loaded")
-                bank = self._banks[h] = self._load(h)
+                with span("focr_bank_height_load"):
+                    bank = self._banks[h] = self._load(h)
+                count("bank_bytes_loaded", sum(
+                    v.nbytes for v in vars(bank).values() if isinstance(v, np.ndarray)))
                 self.loads.append(h)
             return bank
 

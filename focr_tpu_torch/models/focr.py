@@ -42,6 +42,7 @@ from focr_tpu_torch.ops.ssd_kernels import pack_template_fragments, ssd_argmin, 
 from focr_tpu_torch.oracle import focr_oracle
 from focr_tpu_torch.parallel.mesh import fetch_global, pad_batch
 from focr_tpu_torch.utils.device import resolve_device
+from focr_tpu_torch.utils.metrics import count, span
 
 
 @dataclass(frozen=True)
@@ -277,22 +278,27 @@ class GridDecoder:
         n = pages.shape[0]
         if self.mesh is not None:
             pages, _ = pad_batch(pages, self.mesh.size)
-            return n, [fn(pages) for _, fn in self.groups]
+            with span("focr_launch"):
+                return n, [fn(pages) for _, fn in self.groups]
         B = pages.shape[0]
         sizes = [B * len(g.ys) * g.crop_h * self.crop_w for g, _ in self.groups]
-        flat = np.empty(sum(sizes), dtype=np.uint8)
-        off = 0
-        for (grp, _), sz in zip(self.groups, sizes):
-            view = flat[off : off + sz].reshape(B, len(grp.ys), grp.crop_h, self.crop_w)
-            crop_strips(pages, grp.ys, grp.crop_h, self.x0, self.crop_w, out=view)
-            off += sz
-        flat_d = torch.from_numpy(flat).to(self.device)
+        with span("focr_crop"):
+            flat = np.empty(sum(sizes), dtype=np.uint8)
+            off = 0
+            for (grp, _), sz in zip(self.groups, sizes):
+                view = flat[off : off + sz].reshape(B, len(grp.ys), grp.crop_h, self.crop_w)
+                crop_strips(pages, grp.ys, grp.crop_h, self.x0, self.crop_w, out=view)
+                off += sz
+        with span("focr_upload"):
+            flat_d = torch.from_numpy(flat).to(self.device)
+        count("strip_bytes_uploaded", flat.nbytes)
         outs = []
         off = 0
-        for (grp, fwd), sz in zip(self.groups, sizes):
-            strips = flat_d[off : off + sz].view(B, len(grp.ys), grp.crop_h, self.crop_w)
-            outs.append(fwd(strips))
-            off += sz
+        with span("focr_launch"):
+            for (grp, fwd), sz in zip(self.groups, sizes):
+                strips = flat_d[off : off + sz].view(B, len(grp.ys), grp.crop_h, self.crop_w)
+                outs.append(fwd(strips))
+                off += sz
         return n, outs
 
     def _finish(self, outs) -> list[list[DecodedLine]]:
@@ -301,16 +307,18 @@ class GridDecoder:
         n, group_outs = outs
         # one round of copies for every group; a mesh's blocks come back in
         # page order, from every process that holds some
-        fetched = fetch_global(group_outs)
-        per_row: dict[int, tuple[np.ndarray, np.ndarray]] = {}  # y -> (ids [B,C], white [B])
-        for (grp, _), (ids, white) in zip(self.groups, fetched):
-            ids, white = ids[:n], white[:n]  # mesh padding: the white filler pages go
-            for ri, y in enumerate(grp.ys):
-                per_row[y] = (ids[:, ri], white[:, ri])
-        ys_sorted = sorted(per_row)
-        ids_all = np.stack([per_row[y][0] for y in ys_sorted], axis=1)  # [B, R, C]
-        white_all = np.stack([per_row[y][1] for y in ys_sorted], axis=1)  # [B, R]
-        return self._assemble(ids_all, white_all, ys_sorted)
+        with span("focr_fetch"):
+            fetched = fetch_global(group_outs)
+        with span("focr_assemble"):
+            per_row: dict[int, tuple[np.ndarray, np.ndarray]] = {}  # y -> (ids [B,C], white [B])
+            for (grp, _), (ids, white) in zip(self.groups, fetched):
+                ids, white = ids[:n], white[:n]  # mesh padding: the white filler pages go
+                for ri, y in enumerate(grp.ys):
+                    per_row[y] = (ids[:, ri], white[:, ri])
+            ys_sorted = sorted(per_row)
+            ids_all = np.stack([per_row[y][0] for y in ys_sorted], axis=1)  # [B, R, C]
+            white_all = np.stack([per_row[y][1] for y in ys_sorted], axis=1)  # [B, R]
+            return self._assemble(ids_all, white_all, ys_sorted)
 
     def _assemble(
         self, ids_all: np.ndarray, white_all: np.ndarray, ys_sorted: list[int]
@@ -355,7 +363,8 @@ def _cached_decoder(face, alphabet, dopts, ropts, shape, device, banks=None,
     )
     dec = _DECODER_CACHE.get(key)
     if dec is None:
-        dec = GridDecoder(face, alphabet, dopts, ropts, shape, device, banks=banks, mesh=mesh)
+        with span("focr_decoder_build"):
+            dec = GridDecoder(face, alphabet, dopts, ropts, shape, device, banks=banks, mesh=mesh)
         while len(_DECODER_CACHE) >= _DECODER_CACHE_MAX:
             _DECODER_CACHE.popitem(last=False)  # evict least recently used
         _DECODER_CACHE[key] = dec
@@ -382,7 +391,9 @@ def decode_pages(
     deals each batch over a mesh of slots (several cards, or one card's
     streams)."""
     results: list[list[DecodedLine] | None] = [None] * len(pages)
-    for bucket in bucket_pages(pages):
+    with span("focr_bucket"):
+        buckets = bucket_pages(pages)
+    for bucket in buckets:
         dec = _cached_decoder(face, alphabet, dopts, ropts, bucket.shape, device, banks, mesh)
         for s, decoded in decode_stream(dec, bucket.pages, batch_size):
             for j, lines in enumerate(decoded):
@@ -398,18 +409,33 @@ def decode_single_stream(dec: GridDecoder, page: np.ndarray, rows_per_chunk: int
     the moment it is decoded (main.rs:427-440). Chunks of ``rows_per_chunk``
     rows go through the same step as decode_batch, one after another; the
     output equals ``decode_batch(page[None])[0]``."""
+    for lines in decode_single_chunks(dec, page, rows_per_chunk):
+        yield from lines
+
+
+def decode_single_chunks(dec: GridDecoder, page: np.ndarray, rows_per_chunk: int = 16):
+    """decode_single_stream a row chunk at a time: yield each chunk's list of
+    DecodedLine (possibly empty) as soon as its results land."""
     if dec.mesh is not None or not dec.monospace or dec.crop_w == 0 or not dec.groups:
-        for lines in dec.decode_batch(page[None]):
-            yield from lines
+        yield dec.decode_batch(page[None])[0]
         return
     # groups are ordered full-height-first = ascending y (partial rows are
     # at the page bottom), so chunk order is row order
     for grp, fwd in dec.groups:
         for s in range(0, len(grp.ys), rows_per_chunk):
             ys = grp.ys[s : s + rows_per_chunk]
-            strips = crop_strips(page[None], ys, grp.crop_h, dec.x0, dec.crop_w)
-            ids, white = fwd(torch.from_numpy(strips).to(dec.device))
-            yield from dec._assemble(ids.cpu().numpy(), white.cpu().numpy(), list(ys))[0]
+            with span("focr_crop"):
+                strips = crop_strips(page[None], ys, grp.crop_h, dec.x0, dec.crop_w)
+            with span("focr_upload"):
+                strips_d = torch.from_numpy(strips).to(dec.device)
+            count("strip_bytes_uploaded", strips.nbytes)
+            with span("focr_launch"):
+                ids, white = fwd(strips_d)
+            with span("focr_fetch"):
+                ids, white = ids.cpu().numpy(), white.cpu().numpy()
+            with span("focr_assemble"):
+                lines = dec._assemble(ids, white, list(ys))[0]
+            yield lines
 
 
 def decode_stream(dec: GridDecoder, arr: np.ndarray, batch_size: int):

@@ -58,7 +58,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from focr_tpu_torch.fonts.bank import Needle, build_needles
 from focr_tpu_torch.fonts.ft import Face
@@ -81,6 +80,7 @@ from focr_tpu_torch.ops.replay_kernels import (
 )
 from focr_tpu_torch.parallel import mesh as mesh_mod
 from focr_tpu_torch.utils.device import resolve_device, slot_scope
+from focr_tpu_torch.utils.metrics import span
 
 WAVE = 8  # pages per device wave
 # waves in flight beyond the one being collected (focr_tpu/models/ncc.py:565-613
@@ -609,7 +609,7 @@ class NccMatcher:
             cf.ThreadPoolExecutor(max_workers=COLLECT_THREADS) as cpool,
         ):
             def collect_wave(fetched: list) -> None:
-                with record_function("focr_ncc_collect_wave"):
+                with span("focr_ncc_collect_wave"):
                     if verbose:
                         out.extend([collect_one(d) for d in fetched])
                     else:
@@ -700,7 +700,7 @@ class NccMatcher:
         st = self._state(slot)
         cuda = st.device.type == "cuda"
         with (
-            record_function("focr_ncc_dispatch_wave"),
+            span("focr_ncc_dispatch_wave"),
             torch.cuda.device(st.device) if cuda else _NO_STREAM,
             torch.cuda.stream(st.stream) if cuda else _NO_STREAM,
             slot_scope(st.slot.index) if st.slot is not None else _NO_STREAM,
@@ -804,7 +804,7 @@ class NccMatcher:
         if disp.swept or disp.event is not None:
             _count_host_wait()
         if disp.event is not None:
-            with record_function("focr_ncc_fetch_wave"):
+            with span("focr_ncc_fetch_wave"):
                 disp.event.synchronize()
         for (plans, slot, grp, off, hcnt, total), h in zip(disp.swept, disp.hits):
             if disp.held:

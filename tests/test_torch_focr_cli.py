@@ -323,8 +323,10 @@ def test_metrics_json_matches_focr_tpu(setup, capsys, tmp_path, pages):
     assert got_out == want_out
     want = json.loads((tmp_path / "j.json").read_text())
     got = json.loads((tmp_path / "t.json").read_text())
-    assert set(got) == set(want) == {"tool", "pages", "decoded_pages", "lines", "errors",
-                                     "decode_seconds", "pages_per_sec"}
+    assert set(want) == {"tool", "pages", "decoded_pages", "lines", "errors", "decode_seconds",
+                         "pages_per_sec"}
+    assert set(got) == set(want) | {"counters"}
+    assert set(got["counters"]) == {"bank_bytes_loaded", "strip_bytes_uploaded"}
     for k in ("tool", "pages", "decoded_pages", "lines", "errors"):
         assert got[k] == want[k], k
     assert got["decode_seconds"] > 0 and got["pages_per_sec"] == pytest.approx(
@@ -345,19 +347,85 @@ def test_metrics_json_dash_goes_to_stderr(setup, capsys):
     assert json.loads(err.splitlines()[-1])["decoded_pages"] == 2
 
 
+@pytest.fixture(scope="module")
+def grid_bank(setup, mono_font_path):
+    """A saved grid bank set for the grid's flags, crop heights 1..12."""
+    paths, flags, d = setup
+    width = int(flags[flags.index("-w") + 1])
+    tface, tr = TFace(mono_font_path), TRenderOptions(size=13.0)
+    bank = str(d / "grid-spans.npz")
+    save_grid_bank(
+        bank, [build_grid_bank(tface, FOCR_DEFAULT_ALPHABET, tr, width, h) for h in range(1, 13)],
+        grid_bank_settings(mono_font_path, FOCR_DEFAULT_ALPHABET, tr, width),
+    )
+    return bank
+
+
+SPANS = ["focr_bank_open", "focr_bank_height_load", "focr_page_read", "focr_decoder_build",
+         "focr_bucket", "focr_crop", "focr_upload", "focr_launch", "focr_fetch", "focr_assemble",
+         "focr_print"]
+
+
 @pytest.mark.parametrize("pages", [["a"], ["a", "b"]], ids=["streamed", "batched"])
-def test_profile_writes_a_trace_and_keeps_stdout(setup, capsys, tmp_path, pages):
+def test_profile_writes_a_trace_and_keeps_stdout(setup, grid_bank, capsys, tmp_path, pages):
+    """--profile traces the whole call: every stage's span (the streamed path
+    has no bucketing), each height's load inside a decoder's build on the
+    same thread, and the spans on one thread."""
     import json
 
     from focr_tpu_torch.utils.metrics import TRACE_NAME
 
     paths, flags, _ = setup
-    argv = ["-i", *(paths[p] for p in pages), *flags, "--device", "cpu"]
+    argv = ["-i", *(paths[p] for p in pages), *flags, "--device", "cpu", "--grid-bank", grid_bank]
     _, want, _ = _run(torch_main, argv, capsys)
     rc, out, _ = _run(torch_main, [*argv, "--profile", str(tmp_path / "trace")], capsys)
     assert rc == 0 and out == want
     events = json.loads((tmp_path / "trace" / TRACE_NAME).read_text())["traceEvents"]
-    assert len(events) > 10
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    names = {e["name"] for e in spans}
+    assert names == set(SPANS) - ({"focr_bucket"} if len(pages) == 1 else set())
+    assert len({e["tid"] for e in spans}) == 1
+    builds = [e for e in spans if e["name"] == "focr_decoder_build"]
+    loads = [e for e in spans if e["name"] == "focr_bank_height_load"]
+    # crop heights 12 and 9 on page a, 12 and 1 on page b: each loaded once, by the
+    # first decoder that asks
+    assert len(builds) == len(pages) and len(loads) == 1 + len(pages)
+    for e in loads:
+        assert any(b["ts"] <= e["ts"] and e["ts"] + e["dur"] <= b["ts"] + b["dur"]
+                   for b in builds)
+    # a call opens a span a stage, a batch or a chunk, a height: not one a line or a page
+    assert len(spans) <= 60
+
+
+@pytest.mark.parametrize("pages,extra", [(["a"], []), (["a", "b", "c"], []),
+                                         (["b", "a", "c", "noise"], ["--batch-size", "1"])],
+                         ids=["streamed", "batched", "batch1"])
+def test_metrics_json_counts_the_exact_bytes(setup, grid_bank, tmp_path, pages, extra):
+    """--metrics-json's counters: the bank arrays of each crop height loaded,
+    and every strip uploaded (pages × rows × crop_h × crop_w)."""
+    import json
+
+    from focr_tpu_torch.io.images import load_gray
+
+    paths, flags, _ = setup
+    mpath = tmp_path / "m.json"
+    argv = ["-i", *(paths[p] for p in pages), *flags, *extra, "--device", "cpu",
+            "--grid-bank", grid_bank, "--metrics-json", str(mpath)]
+    assert torch_main(argv) == 0
+    got = json.loads(mpath.read_text())["counters"]
+    x0, y0, w = (int(flags[flags.index(f) + 1]) for f in ("-x", "-y", "-w"))
+    heights, strips = set(), 0
+    for p in pages:
+        H, W = load_gray(paths[p]).shape
+        crop_w = max(min(w, W - x0), 0)
+        for y in range(y0, H, GRID["line_advance"]):
+            heights.add(min(GRID["line_height"], H - y))
+            strips += min(GRID["line_height"], H - y) * crop_w
+    with np.load(grid_bank) as z:
+        bank = sum(z[f"grid_h{h}_{k}"].nbytes for h in heights
+                   for k in ("templates", "tsq", "wx0", "positions"))
+    assert got == {"bank_bytes_loaded": bank, "strip_bytes_uploaded": strips}
+    assert strips > 0 and bank > 0
 
 
 @pytest.mark.parametrize("extra", [["--mesh", "auto"], ["--mesh", "off"], ["--glyph-shards", "1"],

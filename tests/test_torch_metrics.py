@@ -42,11 +42,11 @@ def test_write_metrics_dash_goes_to_stderr(fields, capsys):
 
 def test_metrics_run_times_the_region():
     with tmetrics.metrics_run() as run:
-        assert run.seconds == 0.0 and run.extra == {}
+        assert run.seconds == 0.0
         torch.arange(10).sum()
     assert run.seconds > 0.0
-    fields = {f: getattr(run, f) for f in ("seconds", "extra")}
-    assert set(fields) == set(vars(jmetrics.MetricsRun()))
+    # focr_tpu's never-written ``extra`` is left out
+    assert set(vars(run)) == {"seconds"} < set(vars(jmetrics.MetricsRun()))
 
 
 def test_metrics_run_keeps_the_time_when_the_region_raises():
@@ -77,6 +77,76 @@ def test_metrics_run_without_a_dir_traces_nothing(tmp_path, monkeypatch):
     with tmetrics.metrics_run(None):
         torch.zeros(2)
     assert os.listdir(tmp_path) == []
+
+
+def test_span_records_nothing_without_a_profiler(tmp_path):
+    """With no profiler running a span is the one shared null context: no
+    record_function is entered, so a trace started later holds nothing of
+    it."""
+    a, b = tmetrics.span("focr_test_early"), tmetrics.span("focr_test_other")
+    assert a is b and not isinstance(a, torch.profiler.record_function)
+    with a:
+        torch.zeros(2)
+    with tmetrics.profiling(str(tmp_path)):
+        torch.zeros(2)
+    events = json.loads((tmp_path / tmetrics.TRACE_NAME).read_text())["traceEvents"]
+    assert not any(e.get("cat") == "user_annotation" for e in events)
+
+
+def test_span_records_on_a_worker_thread_started_before_the_profiler(tmp_path):
+    """The guard's flag reads True on a thread that was running before the
+    trace began (the C-level one does not), so its spans are recorded; a
+    torch that drops the module flag records every span and still passes,
+    one whose flag stays False on such a thread fails here."""
+    import threading
+
+    go = threading.Event()
+    seen = {}
+
+    def worker():
+        go.wait()
+        seen["span"] = tmetrics.span("focr_test_worker")
+        with seen["span"]:
+            torch.ones(8).sum()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    try:
+        with tmetrics.profiling(str(tmp_path)):
+            with tmetrics.span("focr_test_main"):
+                torch.ones(8).sum()
+            go.set()
+            t.join(timeout=60)
+    finally:
+        go.set()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    assert isinstance(seen["span"], torch.profiler.record_function)
+    events = json.loads((tmp_path / tmetrics.TRACE_NAME).read_text())["traceEvents"]
+    spans = {e["name"]: e["tid"] for e in events if e.get("cat") == "user_annotation"}
+    assert set(spans) == {"focr_test_main", "focr_test_worker"}
+    assert spans["focr_test_main"] != spans["focr_test_worker"]
+
+
+def test_counters_add_from_threads_and_reset():
+    """More threads than cores, switching as often as the interpreter can:
+    a lost update would show in the sum."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmetrics.reset_counters("a", "b")
+    assert tmetrics.COUNTERS == {"a": 0, "b": 0}
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(32) as ex:
+            list(ex.map(lambda i: [tmetrics.count("a", i) for _ in range(1000)], range(32)))
+    finally:
+        sys.setswitchinterval(interval)
+    tmetrics.count("c", 5)
+    assert tmetrics.COUNTERS == {"a": 1000 * sum(range(32)), "b": 0, "c": 5}
+    tmetrics.reset_counters()
+    assert tmetrics.COUNTERS == {}
 
 
 def test_new_modules_import_without_jax_or_focr_tpu():
