@@ -1301,11 +1301,11 @@ def banks_phase(cases: dict) -> dict:
         if out != want:
             raise AssertionError(f"banks: the {name} CLI's lines differ from focr_tpu's")
         if len(made) != 1 or sorted(made[0].loads) != [3, 12] or len(made[0]) != 12:
-            raise AssertionError(f"banks: the {name} CLI decompressed crop heights "
+            raise AssertionError(f"banks: the {name} CLI loaded crop heights "
                                  f"{[m.loads for m in made]} of {len(made[0])}, not 12 and 3")
         path = argv[argv.index("--grid-bank") + 1]
         eager, lazy = load_ms(path, None), load_ms(path, (12, 3))
-        log(f"[banks] {name}: the CLI decompressed crop heights {made[0].loads} of 12; bank load "
+        log(f"[banks] {name}: the CLI loaded crop heights {made[0].loads} of 12; bank load "
             f"ms (median of 3): every height {eager:.1f}, heights 12 and 3 {lazy:.1f}")
         result[name] = {"loads": made[0].loads, "load_all_ms": eager, "load_used_ms": lazy}
     return result

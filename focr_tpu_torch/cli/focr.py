@@ -70,7 +70,8 @@ def main(argv: list[str] | None = None) -> int:
         COUNTERS, metrics_run, profiling, reset_counters, span, write_metrics,
     )
 
-    reset_counters("bank_bytes_loaded", "strip_bytes_uploaded")
+    reset_counters("bank_bytes_loaded", "strip_bytes_uploaded", "bank_cache_hits",
+                   "bank_cache_misses")
     if args.verify is not None:
         assert os.path.isdir(args.verify), "--verify should be a dir"
 

@@ -12,11 +12,13 @@ machine without FreeType can decode with glyphs rendered elsewhere. A saved
 focr bank set holds one grid or proportional bank per crop height (its
 settings name the kind), so every page height on its grid is served; it loads
 lazily (BankSet): a crop height is decompressed when a decoder first asks for
-it.
+it, and kept raw in the bank cache, so that a later process reads it back
+without decompressing it again.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import threading
@@ -352,16 +354,23 @@ def save_grid_bank(path: str, banks: list[FocrBank], settings: dict) -> None:
     np.savez_compressed(path, **grid_bank_arrays(banks, settings))
 
 
+_MEMBERS = {"grid": ("templates", "tsq", "wx0", "positions"),
+            "prop": ("templates", "colsq_cum", "advances", "origin", "base")}
+
+
 class BankSet(Mapping):
     """A saved focr bank set as a read-only mapping {crop height: GridBank or
-    PropBank} that decompresses a height when it is first asked for and keeps
-    it. The settings and the member names are read when the set is opened,
-    so ``set(banks)``, ``len`` and ``in`` decompress nothing; ``kind`` is the
-    settings' "grid" or "prop". ``loads`` lists the heights decompressed so
-    far, in order. The .npz handle stays open as long as the set lives;
-    ``close`` (or the set's end of life) releases it, after which only the
-    heights already loaded can be read. The decoders may ask from worker
-    threads: a lock guards each first load."""
+    PropBank} that loads a height when it is first asked for and keeps it.
+    The settings and the member names are read when the set is opened, so
+    ``set(banks)``, ``len`` and ``in`` decompress nothing; ``kind`` is the
+    settings' "grid" or "prop". ``loads`` lists the heights loaded so far, in
+    order. A height is read from its raw copy in the bank cache
+    (utils/cache.py) when the cache holds a sound one (counted as
+    ``bank_cache_hits``), else decompressed from the file and its copy
+    written (``bank_cache_misses``). The .npz handle stays open as long as
+    the set lives; ``close`` (or the set's end of life) releases it, after
+    which only the heights already loaded can be read. The decoders may ask
+    from worker threads: a lock guards each first load."""
 
     def __init__(self, path: str):
         self._z = np.load(path, allow_pickle=False)
@@ -406,23 +415,37 @@ class BankSet(Mapping):
                 self.loads.append(h)
             return bank
 
+    def _members(self, h: int) -> dict[str, np.ndarray]:
+        """Crop height ``h``'s members by field, from the bank cache's raw
+        copy or, on a miss, decompressed (and the copy written)."""
+        fields = _MEMBERS[self.kind]
+        infos = [self._z.zip.getinfo(f"{self._prefix}{h}_{f}.npy") for f in fields]
+        members = [(i.filename, i.CRC, i.file_size) for i in infos]
+        key = cache.members_key("saved_bank_height", members, settings=self.settings, crop_h=h)
+        raw = cache.load_members(key, members)
+        count("bank_cache_misses" if raw is None else "bank_cache_hits", 1)
+        if raw is None:
+            raw = [self._z.zip.read(i) for i in infos]
+            cache.store_members(key, raw)
+        return {f: np.lib.format.read_array(io.BytesIO(b), allow_pickle=False)
+                for f, b in zip(fields, raw)}
+
     def _load(self, h: int) -> FocrBank:
-        z, s = self._z, self.settings
+        m, s = self._members(h), self.settings
         if self.kind == "grid":
             return GridBank(
                 alphabet=s["alphabet"],
-                templates=z[f"grid_h{h}_templates"],
-                tsq=z[f"grid_h{h}_tsq"],
-                wx0=z[f"grid_h{h}_wx0"],
-                positions=z[f"grid_h{h}_positions"],
+                templates=m["templates"],
+                tsq=m["tsq"],
+                wx0=m["wx0"],
+                positions=m["positions"],
                 crop_w=s["crop_w"],
                 crop_h=h,
                 monospace=True,
             )
-        ox, oy = z[f"prop_h{h}_origin"]
+        ox, oy = m["origin"]
         return prop_bank_from_arrays(
-            s["alphabet"], z[f"prop_h{h}_templates"], z[f"prop_h{h}_colsq_cum"],
-            z[f"prop_h{h}_advances"], z[f"prop_h{h}_base"][0], ox, oy, h,
+            s["alphabet"], m["templates"], m["colsq_cum"], m["advances"], m["base"][0], ox, oy, h,
         )
 
     def close(self) -> None:

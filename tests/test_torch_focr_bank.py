@@ -258,9 +258,22 @@ def test_canonical_decode_loads_heights_12_and_3_only(fixture):
     assert [[[ln.text, ln.y] for ln in p] for p in dec2.decode_batch(pages)] == got == lines
 
 
-def test_bank_set_first_load_is_guarded_and_close_keeps_loaded_heights():
+@pytest.mark.parametrize("cache", ["cold", "warm", "off"])
+def test_bank_set_first_load_is_guarded_and_close_keeps_loaded_heights(cache, tmp_path,
+                                                                       monkeypatch):
+    """One load of a height however many threads ask, whether it is
+    decompressed or read from the bank cache."""
     import threading
 
+    from focr_tpu_torch.utils.metrics import COUNTERS, reset_counters
+
+    monkeypatch.setenv("FOCR_TPU_CACHE_DIR", str(tmp_path / "banks"))
+    monkeypatch.delenv("FOCR_TPU_NO_BANK_CACHE", raising=False)
+    if cache == "off":
+        monkeypatch.setenv("FOCR_TPU_NO_BANK_CACHE", "1")
+    if cache == "warm":
+        tbank.load_grid_bank(FIXTURE)[0][12]
+    reset_counters()
     banks, _ = tbank.load_grid_bank(FIXTURE)
     got, barrier = [], threading.Barrier(8)
 
@@ -275,6 +288,8 @@ def test_bank_set_first_load_is_guarded_and_close_keeps_loaded_heights():
         t.join(timeout=60)
     assert not any(t.is_alive() for t in threads)
     assert banks.loads == [12] and len(got) == 8 and all(b is got[0] for b in got)
+    assert (COUNTERS.get("bank_cache_hits", 0), COUNTERS.get("bank_cache_misses", 0)) == (
+        (1, 0) if cache == "warm" else (0, 1))
     banks.close()
     banks.close()
     assert banks[12] is got[0] and set(banks) == set(range(1, 13))
@@ -314,3 +329,130 @@ def test_cli_reports_a_missing_height_without_decompressing(faces, tmp_path, cap
     cap = capsys.readouterr()
     assert rc == 2 and cap.out == "" and "no bank for crop heights [1, 3, 4" in cap.err
     assert made[0][0].loads == []
+
+
+# --- the saved sets' raw copies in the bank cache -----------------------------
+
+
+def _cold(fixture, h):
+    """Crop height ``h`` of a saved set as np.load decompresses it."""
+    with np.load(fixture, allow_pickle=False) as z:
+        settings = json.loads(str(z["grid_bank_settings"]))
+        if settings.get("kind", "grid") == "grid":
+            return tbank.GridBank(settings["alphabet"], *(z[f"grid_h{h}_{f}"] for f in FIELDS),
+                                  crop_w=settings["crop_w"], crop_h=h, monospace=True)
+        ox, oy = z[f"prop_h{h}_origin"]
+        return tbank.prop_bank_from_arrays(
+            settings["alphabet"], z[f"prop_h{h}_templates"], z[f"prop_h{h}_colsq_cum"],
+            z[f"prop_h{h}_advances"], z[f"prop_h{h}_base"][0], ox, oy, h)
+
+
+def _identical(a, b):
+    assert type(a) is type(b)
+    for f, x in vars(a).items():
+        y = getattr(b, f)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y), f
+        else:
+            assert type(x) is type(y) and x == y, f
+
+
+def _load(path, *heights):
+    """A new set's ``heights``, and the cache's hits and misses while it
+    loaded them."""
+    from focr_tpu_torch.utils.metrics import COUNTERS, reset_counters
+
+    reset_counters("bank_cache_hits", "bank_cache_misses")
+    banks, _ = tbank.load_grid_bank(path)
+    got = [banks[h] for h in heights]
+    assert banks.loads == list(heights)
+    return got, (COUNTERS["bank_cache_hits"], COUNTERS["bank_cache_misses"])
+
+
+def _entries(d):
+    return sorted(d.glob("*.raw")) if d.exists() else []
+
+
+@pytest.fixture
+def bank_cache(tmp_path, monkeypatch):
+    d = tmp_path / "banks"
+    monkeypatch.setenv("FOCR_TPU_CACHE_DIR", str(d))
+    monkeypatch.delenv("FOCR_TPU_NO_BANK_CACHE", raising=False)
+    return d
+
+
+@pytest.mark.parametrize("fixture", [FIXTURE, PROP_FIXTURE], ids=["grid", "prop"])
+def test_a_second_set_of_the_same_file_hits(bank_cache, tmp_path, fixture):
+    """The first set decompresses and writes a raw copy a height; a second
+    one of the same bytes under another path reads them back: the same
+    arrays, bit for bit, as np.load's."""
+    import shutil
+
+    first, counts = _load(fixture, 12, 3)
+    assert counts == (0, 2) and len(_entries(bank_cache)) == 2
+    moved = str(tmp_path / "moved.npz")
+    shutil.copyfile(fixture, moved)
+    for path in (fixture, moved):
+        again, counts = _load(path, 3, 12)
+        assert counts == (2, 0)
+        for got, before in zip(again, first[::-1]):
+            _identical(got, _cold(fixture, got.crop_h))
+            _identical(got, before)
+    assert len(_entries(bank_cache)) == 2
+
+
+def test_a_rewritten_file_misses(bank_cache, tmp_path):
+    path = str(tmp_path / "set.npz")
+    with np.load(FIXTURE, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files if k.startswith("grid_")}
+    np.savez_compressed(path, **arrays)
+    assert _load(path, 3)[1] == (0, 1)
+    assert _load(path, 3)[1] == (1, 0)
+    arrays["grid_h3_templates"] = arrays["grid_h3_templates"].copy()
+    arrays["grid_h3_templates"][0, 0, 0, 0] ^= 1
+    np.savez_compressed(path, **arrays)
+    (got,), counts = _load(path, 3)
+    assert counts == (0, 1) and len(_entries(bank_cache)) == 2
+    _identical(got, _cold(path, 3))
+    assert np.array_equal(got.templates, arrays["grid_h3_templates"])
+
+
+@pytest.mark.parametrize("damage", ["truncated", "flipped", "empty"])
+def test_a_damaged_copy_misses_and_is_rewritten(bank_cache, damage):
+    _load(FIXTURE, 3)
+    (entry,) = _entries(bank_cache)
+    good = entry.read_bytes()
+    bad = {"truncated": good[:-7], "empty": b"",
+           "flipped": bytearray(good)}[damage]
+    if damage == "flipped":
+        bad[len(good) // 2] ^= 0x10
+    entry.write_bytes(bad)
+    (got,), counts = _load(FIXTURE, 3)
+    assert counts == (0, 1)
+    assert _entries(bank_cache) == [entry] and entry.read_bytes() == good
+    _identical(got, _cold(FIXTURE, 3))
+    assert _load(FIXTURE, 3)[1] == (1, 0)
+
+
+def test_no_bank_cache_writes_nothing_and_always_misses(bank_cache, monkeypatch):
+    monkeypatch.setenv("FOCR_TPU_NO_BANK_CACHE", "1")
+    for _ in range(2):
+        (got,), counts = _load(FIXTURE, 3)
+        assert counts == (0, 1)
+        _identical(got, _cold(FIXTURE, 3))
+    assert not bank_cache.exists()
+
+
+def test_an_unwritable_cache_still_decodes(tmp_path, monkeypatch):
+    """A cache directory that cannot be made (a file stands where its
+    parent should be): every load misses, and decodes all the same."""
+    blocker = tmp_path / "file"
+    blocker.write_bytes(b"")
+    monkeypatch.setenv("FOCR_TPU_CACHE_DIR", str(blocker / "banks"))
+    monkeypatch.delenv("FOCR_TPU_NO_BANK_CACHE", raising=False)
+    for _ in range(2):
+        got, counts = _load(PROP_FIXTURE, 12, 3)
+        assert counts == (0, 2)
+        for b in got:
+            _identical(b, _cold(PROP_FIXTURE, b.crop_h))
+    assert blocker.read_bytes() == b""

@@ -326,7 +326,10 @@ def test_metrics_json_matches_focr_tpu(setup, capsys, tmp_path, pages):
     assert set(want) == {"tool", "pages", "decoded_pages", "lines", "errors", "decode_seconds",
                          "pages_per_sec"}
     assert set(got) == set(want) | {"counters"}
-    assert set(got["counters"]) == {"bank_bytes_loaded", "strip_bytes_uploaded"}
+    assert set(got["counters"]) == {"bank_bytes_loaded", "strip_bytes_uploaded",
+                                    "bank_cache_hits", "bank_cache_misses"}
+    # fonts, no saved set: nothing is read from the bank cache's raw copies
+    assert got["counters"]["bank_cache_hits"] == got["counters"]["bank_cache_misses"] == 0
     for k in ("tool", "pages", "decoded_pages", "lines", "errors"):
         assert got[k] == want[k], k
     assert got["decode_seconds"] > 0 and got["pages_per_sec"] == pytest.approx(
@@ -400,19 +403,24 @@ def test_profile_writes_a_trace_and_keeps_stdout(setup, grid_bank, capsys, tmp_p
 @pytest.mark.parametrize("pages,extra", [(["a"], []), (["a", "b", "c"], []),
                                          (["b", "a", "c", "noise"], ["--batch-size", "1"])],
                          ids=["streamed", "batched", "batch1"])
-def test_metrics_json_counts_the_exact_bytes(setup, grid_bank, tmp_path, pages, extra):
+def test_metrics_json_counts_the_exact_bytes(setup, grid_bank, tmp_path, monkeypatch, pages,
+                                            extra):
     """--metrics-json's counters: the bank arrays of each crop height loaded,
-    and every strip uploaded (pages × rows × crop_h × crop_w)."""
+    every strip uploaded (pages × rows × crop_h × crop_w), and each height's
+    load as a miss of the bank cache, then, in the next call, as a hit."""
     import json
 
     from focr_tpu_torch.io.images import load_gray
 
+    monkeypatch.setenv("FOCR_TPU_CACHE_DIR", str(tmp_path / "banks"))
     paths, flags, _ = setup
     mpath = tmp_path / "m.json"
     argv = ["-i", *(paths[p] for p in pages), *flags, *extra, "--device", "cpu",
             "--grid-bank", grid_bank, "--metrics-json", str(mpath)]
     assert torch_main(argv) == 0
     got = json.loads(mpath.read_text())["counters"]
+    assert torch_main(argv) == 0
+    again = json.loads(mpath.read_text())["counters"]
     x0, y0, w = (int(flags[flags.index(f) + 1]) for f in ("-x", "-y", "-w"))
     heights, strips = set(), 0
     for p in pages:
@@ -424,8 +432,40 @@ def test_metrics_json_counts_the_exact_bytes(setup, grid_bank, tmp_path, pages, 
     with np.load(grid_bank) as z:
         bank = sum(z[f"grid_h{h}_{k}"].nbytes for h in heights
                    for k in ("templates", "tsq", "wx0", "positions"))
-    assert got == {"bank_bytes_loaded": bank, "strip_bytes_uploaded": strips}
+    assert got == {"bank_bytes_loaded": bank, "strip_bytes_uploaded": strips,
+                   "bank_cache_hits": 0, "bank_cache_misses": len(heights)}
+    assert again == {**got, "bank_cache_hits": len(heights), "bank_cache_misses": 0}
     assert strips > 0 and bank > 0
+
+
+def test_a_fresh_process_reads_the_heights_from_the_bank_cache(setup, grid_bank, tmp_path):
+    """Two runs of the CLI, each in a process of its own, over one cache
+    directory: the same stdout, and the second run reads every crop height
+    the first one decompressed from its raw copy."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "FOCR_TPU_CACHE_DIR": str(tmp_path / "banks"), "PYTHONPATH": repo}
+    env.pop("FOCR_TPU_NO_BANK_CACHE", None)
+    paths, flags, _ = setup
+    runs = []
+    for i in range(2):
+        mpath = tmp_path / f"m{i}.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "focr_tpu_torch.cli.focr", "-i", paths["a"], paths["b"],
+             *flags, "--device", "cpu", "--grid-bank", grid_bank, "--metrics-json", str(mpath)],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        runs.append((proc.stdout, json.loads(mpath.read_text())["counters"]))
+    (out0, c0), (out1, c1) = runs
+    assert out0 == out1 and out0.strip()
+    # pages a and b: crop heights 12, 9 and 1
+    assert (c0["bank_cache_hits"], c0["bank_cache_misses"]) == (0, 3)
+    assert (c1["bank_cache_hits"], c1["bank_cache_misses"]) == (3, 0)
+    assert c0["bank_bytes_loaded"] == c1["bank_bytes_loaded"] > 0
 
 
 @pytest.mark.parametrize("extra", [["--mesh", "auto"], ["--mesh", "off"], ["--glyph-shards", "1"],
