@@ -244,30 +244,37 @@ class GridDecoder:
 
     def _decode_prop(self, pages: np.ndarray) -> list[list[DecodedLine]]:
         """Proportional-font batch decode through K5, one launch per row
-        group (focr_tpu/models/focr.py:241-268). All-white strips are skipped
-        before the device: the row loop drops their text (main.rs:208-211)."""
+        group that holds ink (focr_tpu/models/focr.py:241-268). All-white
+        strips are skipped before the device: the row loop drops their text
+        (main.rs:208-211)."""
         B = pages.shape[0]
-        inv = np.subtract(255, pages, dtype=np.uint8)
-        per_row: dict[int, list[str | None]] = {}  # y -> text per page, None if white
-        for grp, dec in self.prop_groups:
-            ch = grp.crop_h
-            strips = np.stack(
-                [inv[:, y : y + ch, self.x0 : self.x0 + self.crop_w] for y in grp.ys], axis=1
-            ).reshape(-1, ch, self.crop_w)  # [B*R, ch, cw], page-major
-            inked = np.flatnonzero(strips.reshape(len(strips), -1).max(axis=1) > 0)
-            texts: list[str | None] = [None] * len(strips)
-            if len(inked):
-                for i, t in zip(inked, dec.decode_lines(strips[inked])):
-                    texts[i] = t
-            R = len(grp.ys)
-            for ri, y in enumerate(grp.ys):
-                per_row[y] = [texts[b * R + ri] for b in range(B)]
-        ys_sorted = sorted(per_row)
-        return [
-            [DecodedLine(text=per_row[y][b], y=int(y)) for y in ys_sorted
-             if per_row[y][b] is not None]
-            for b in range(B)
-        ]
+        with span("focr_prop_strips"):
+            inv = np.subtract(255, pages, dtype=np.uint8)
+            work = []
+            for grp, dec in self.prop_groups:
+                ch = grp.crop_h
+                strips = np.stack(
+                    [inv[:, y : y + ch, self.x0 : self.x0 + self.crop_w] for y in grp.ys], axis=1
+                ).reshape(-1, ch, self.crop_w)  # [B*R, ch, cw], page-major
+                inked = np.flatnonzero(strips.reshape(len(strips), -1).max(axis=1) > 0)
+                work.append((grp, dec, len(strips), inked, strips[inked]))
+        ids = [dec.scan(lines) if len(lines) else None for _, dec, _, _, lines in work]
+        with span("focr_prop_text"):
+            per_row: dict[int, list[str | None]] = {}  # y -> text per page, None if white
+            for (grp, dec, n, inked, _), got in zip(work, ids):
+                texts: list[str | None] = [None] * n
+                if got is not None:
+                    for i, t in zip(inked, dec.texts(got)):
+                        texts[i] = t
+                R = len(grp.ys)
+                for ri, y in enumerate(grp.ys):
+                    per_row[y] = [texts[b * R + ri] for b in range(B)]
+            ys_sorted = sorted(per_row)
+            return [
+                [DecodedLine(text=per_row[y][b], y=int(y)) for y in ys_sorted
+                 if per_row[y][b] is not None]
+                for b in range(B)
+            ]
 
     def _dispatch(self, pages: np.ndarray) -> tuple[int, list]:
         """Crop every row group's strips into ONE flat host buffer (filled in

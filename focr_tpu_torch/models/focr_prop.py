@@ -24,6 +24,7 @@ import torch
 from focr_tpu_torch.fonts.bank import PropBank
 from focr_tpu_torch.ops.prop_kernels import END_ID, check_bank, prop_scan, template_words
 from focr_tpu_torch.parallel.mesh import SLOTS, Sharded, fetch_global, put_global
+from focr_tpu_torch.utils.metrics import count, span
 
 
 def max_steps(bank: PropBank, crop_w: int) -> int:
@@ -90,27 +91,47 @@ class PropDecoder:
                 self.fwds[slot.index] = PropForward(bank, crop_w, self.n_steps, slot.device)
         self.fwd = self.fwds[self.mesh.local_slots[0].index]
 
-    def _scan(self, strips: np.ndarray) -> np.ndarray:
-        """[L, crop_h, crop_w] u8 -> ids u8 [L, n_steps] on the host."""
+    def scan(self, strips: np.ndarray) -> np.ndarray:
+        """[L, crop_h, crop_w] u8 -> ids u8 [L, n_steps] on the host. Counts
+        the lines sent to K5 and the bytes this process uploads."""
         strips = np.ascontiguousarray(strips)
+        count("prop_lines_scanned", strips.shape[0])
         if self.mesh is None:
-            return self.fwd(torch.from_numpy(strips).to(self.device)).cpu().numpy()
+            with span("focr_prop_upload"):
+                strips_d = torch.from_numpy(strips).to(self.device)
+            count("strip_bytes_uploaded", strips.nbytes)
+            with span("focr_prop_launch"):
+                ids = self.fwd(strips_d)
+            with span("focr_prop_fetch"):
+                return ids.cpu().numpy()
+        with span("focr_prop_upload"):
+            placed = put_global(strips, self.mesh, SLOTS)
+        count("strip_bytes_uploaded", sum(block.numel() for _, _, block in placed.shards))
         outs = []
-        for slot, idx, block in put_global(strips, self.mesh, SLOTS).shards:
-            if block.shape[0] == 0:
-                continue
-            with slot.context():
-                outs.append((slot, idx, self.fwds[slot.index](block)))
-        return fetch_global(
-            Sharded(self.mesh, (strips.shape[0], self.n_steps), torch.uint8, outs, SLOTS))
+        with span("focr_prop_launch"):
+            for slot, idx, block in placed.shards:
+                if block.shape[0] == 0:
+                    continue
+                with slot.context():
+                    outs.append((slot, idx, self.fwds[slot.index](block)))
+        with span("focr_prop_fetch"):
+            return fetch_global(
+                Sharded(self.mesh, (strips.shape[0], self.n_steps), torch.uint8, outs, SLOTS))
 
-    def decode_lines(self, strips: np.ndarray) -> list[str]:
-        """strips: [L, crop_h, crop_w] INVERTED line crops -> decoded texts."""
-        ids = self._scan(strips)
+    def texts(self, ids: np.ndarray) -> list[str]:
+        """ids u8 [L, n_steps] -> each line's text, trimmed at END_ID. Counts
+        the cursor steps that emitted a glyph."""
         ends = ids == END_ID
         lens = np.where(ends.any(axis=1), ends.argmax(axis=1), ids.shape[1])
+        count("prop_steps", int(lens.sum()))
         alphabet = self.bank.alphabet
         if alphabet.isascii():  # one table lookup for the batch, then bytes per line
             chars = np.frombuffer(alphabet.encode("ascii"), np.uint8)[np.where(ends, 0, ids)]
             return [chars[i, :n].tobytes().decode("ascii") for i, n in enumerate(lens)]
         return ["".join(alphabet[g] for g in row[:n]) for row, n in zip(ids, lens)]
+
+    def decode_lines(self, strips: np.ndarray) -> list[str]:
+        """strips: [L, crop_h, crop_w] INVERTED line crops -> decoded texts."""
+        ids = self.scan(strips)
+        with span("focr_prop_text"):
+            return self.texts(ids)
