@@ -71,7 +71,7 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     reset_counters("bank_bytes_loaded", "strip_bytes_uploaded", "bank_cache_hits",
-                   "bank_cache_misses", "prop_lines_scanned", "prop_steps")
+                   "bank_cache_misses", "prop_lines_scanned", "prop_steps", "prop_strips_white")
     if args.verify is not None:
         assert os.path.isdir(args.verify), "--verify should be a dir"
 

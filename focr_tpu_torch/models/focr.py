@@ -111,6 +111,34 @@ def crop_strips(
     return out
 
 
+def inked_strips(
+    pages: np.ndarray, grp: _RowGroup, x0: int, crop_w: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """One row group's inked strips, inverted, straight from the pages:
+    [B, H, W] u8 -> (page-major indices b * R + r of the inked strips,
+    [L, crop_h, crop_w] u8 of 255 - pixel), and counts the white strips the
+    ink test dropped. The group's ys are evenly spaced (_row_groups: the
+    full-height rows in one group, each partial bottom height alone), so the
+    strips are one strided view of the pages; a strip holds ink exactly when
+    its least pixel is below 255, so the test copies nothing, and only the
+    inked strips are gathered, then inverted in place."""
+    ys, (H, W) = grp.ys, pages.shape[1:]
+    step = ys[1] - ys[0] if len(ys) > 1 else 0
+    if (min(ys[0], x0) < 0 or ys[-1] + grp.crop_h > H or x0 + crop_w > W
+            or ys != tuple(ys[0] + i * step for i in range(len(ys)))):
+        raise ValueError(f"focr prop strips: rows {ys} of height {grp.crop_h} at x {x0}, width "
+                         f"{crop_w}, are not an even grid inside a {H}x{W} page")
+    base = pages[:, ys[0]:, x0 : x0 + crop_w]
+    sb, sy, sx = base.strides
+    view = np.lib.stride_tricks.as_strided(
+        base, (len(pages), len(ys), grp.crop_h, crop_w), (sb, step * sy, sy, sx), writeable=False)
+    b, r = np.nonzero(view.min(axis=(2, 3)) < 255)
+    count("prop_strips_white", len(pages) * len(ys) - len(b))
+    lines = view[b, r]
+    np.subtract(255, lines, out=lines)
+    return b * len(ys) + r, lines
+
+
 def make_grid_forward(bank: GridBank, ys: tuple[int, ...], x0: int, device):
     """The [B, H, W] u8 pages -> (ids [B, R, C], white [B, R]) step of one
     row group: crop on the host, then StripForward on ``device``."""
@@ -245,19 +273,12 @@ class GridDecoder:
     def _decode_prop(self, pages: np.ndarray) -> list[list[DecodedLine]]:
         """Proportional-font batch decode through K5, one launch per row
         group that holds ink (focr_tpu/models/focr.py:241-268). All-white
-        strips are skipped before the device: the row loop drops their text
-        (main.rs:208-211)."""
+        strips are dropped on the pages, before any copy: the row loop drops
+        their text (main.rs:208-211)."""
         B = pages.shape[0]
         with span("focr_prop_strips"):
-            inv = np.subtract(255, pages, dtype=np.uint8)
-            work = []
-            for grp, dec in self.prop_groups:
-                ch = grp.crop_h
-                strips = np.stack(
-                    [inv[:, y : y + ch, self.x0 : self.x0 + self.crop_w] for y in grp.ys], axis=1
-                ).reshape(-1, ch, self.crop_w)  # [B*R, ch, cw], page-major
-                inked = np.flatnonzero(strips.reshape(len(strips), -1).max(axis=1) > 0)
-                work.append((grp, dec, len(strips), inked, strips[inked]))
+            work = [(grp, dec, B * len(grp.ys), *inked_strips(pages, grp, self.x0, self.crop_w))
+                    for grp, dec in self.prop_groups]
         ids = [dec.scan(lines) if len(lines) else None for _, dec, _, _, lines in work]
         with span("focr_prop_text"):
             per_row: dict[int, list[str | None]] = {}  # y -> text per page, None if white

@@ -77,9 +77,16 @@ def test_cli_prints_the_references_lines(pool, capsys, mode):
     assert sum(map(len, expect)) == 48 * len(expect)
 
 
+def _grid_rows(height):
+    """The scan grid's rows on a page of ``height``: full and partial."""
+    return len(range(GRID["y"], height, GRID["line_advance"]))
+
+
 def test_metrics_json_counts_the_prop_scan(pool, tmp_path):
     """prop_lines_scanned: the inked rows; prop_steps: the reference's steps
-    summed; strip_bytes_uploaded: those rows' strips, crop_h x crop_w each."""
+    summed; strip_bytes_uploaded: those rows' strips, crop_h x crop_w each;
+    prop_strips_white: the rest of the grid's rows, 3 a page (two white rows
+    of height 12 and the bottom row of height 3)."""
     pages, paths, _, stats = pool
     mpath = tmp_path / "m.json"
     assert torch_main(_argv(paths, "--metrics-json", str(mpath))) == 0
@@ -88,6 +95,20 @@ def test_metrics_json_counts_the_prop_scan(pool, tmp_path):
     assert got["prop_lines_scanned"] == len(rows) == 48 * N_POOL
     assert got["prop_steps"] == sum(r[2] for r in rows)
     assert got["strip_bytes_uploaded"] == sum(h * GRID["width"] for _, h, _ in rows)
+    assert got["prop_strips_white"] == 3 * N_POOL
+
+
+@pytest.mark.parametrize("batch", [1, 3, N_POOL])
+def test_white_and_scanned_strips_cover_the_grid(pool, tmp_path, batch):
+    """Every row of the grid on every page is either sent to K5 or dropped
+    by the ink test, whatever the batching."""
+    pages, paths, _, _ = pool
+    mpath = tmp_path / "m.json"
+    argv = _argv(paths, "--batch-size", str(batch), "--metrics-json", str(mpath))
+    assert torch_main(argv) == 0
+    got = json.loads(mpath.read_text())["counters"]
+    assert got["prop_strips_white"] + got["prop_lines_scanned"] == (
+        N_POOL * _grid_rows(pages.shape[1]))
 
 
 def test_prop_spans_open_once_a_batch_or_row_group(pool, capsys, tmp_path):
@@ -108,8 +129,9 @@ def test_prop_spans_open_once_a_batch_or_row_group(pool, capsys, tmp_path):
 
 
 def test_prop_mesh_path_has_the_same_spans_and_counts(pool):
-    """Lines dealt over two cpu slots: the same ids, the same counters, and
-    the same spans as one slot, each still once a batch's inked row group."""
+    """Lines dealt over two cpu slots: the same ids, the same counters (the
+    white strips dropped included), and the same spans as one slot, each
+    still once a batch's inked row group."""
     pages, _, want, _ = pool
     banks, _ = load_grid_bank(FIXTURE)
     dopts = DecodeOptions(x_start=GRID["x"], y_start=GRID["y"], width=GRID["width"],
@@ -128,3 +150,4 @@ def test_prop_mesh_path_has_the_same_spans_and_counts(pool):
     assert runs[0] == runs[1]
     assert runs[0][0] == want and runs[0][2] == dict.fromkeys(PROP_SPANS, 1)
     assert runs[0][1]["prop_lines_scanned"] == 48 * N_POOL
+    assert runs[0][1]["prop_strips_white"] == 3 * N_POOL
