@@ -231,6 +231,10 @@ import sys
 import tempfile
 import time
 
+# the card's peaks and the least time a kernel's work needs: the benchmark's
+# yardstick (every kernel here multiplies u8 pixels by u8 templates)
+from portbench.lib.roofline import bound_ms as bound
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_ncc_golden.npz")
 FOCR_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_focr_golden.npz")
@@ -300,20 +304,6 @@ def device_ms(fn, reps: int, kernel: str, per_call: int = 1, traces: int = 4) ->
             f"{[h for h, _ in held]} of the {want} kernels launched; the mean of the "
             "fullest is used")
     return total / n * per_call / 1e3
-
-
-# the H100 SXM's published dense int8 tensor-core rate and memory rate (NVIDIA's
-# data sheet, at 700 W): every kernel here multiplies u8 pixels by u8 templates
-INT8_OPS_PER_S = 1979e12
-HBM_BYTES_PER_S = 3.35e12
-
-
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """The least ms the card could take for ``ops`` operations (2 per
-    multiply-add) and ``nbytes`` moved (each input read once, each output
-    written once), and which of the two bounds it."""
-    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def nbytes(*tensors) -> int:

@@ -64,7 +64,7 @@ def main(argv: list[str] | None = None) -> int:
     from focr_tpu_torch.io.images import (
         load_gray, load_gray_many, load_gray_many_isolated, save_rgb, save_rgba,
     )
-    from focr_tpu_torch.models.focr import _cached_decoder, decode_pages, decode_single_chunks
+    from focr_tpu_torch.models.focr import GridDecoder, decode_pages, decode_single_chunks
     from focr_tpu_torch.utils.device import resolve_device
     from focr_tpu_torch.utils.metrics import (
         COUNTERS, metrics_run, profiling, reset_counters, span, write_metrics,
@@ -145,8 +145,8 @@ def main(argv: list[str] | None = None) -> int:
             # single-image fast path: print each line as soon as its row chunk
             # is decoded (main.rs:427-440)
             page = good_pages[0]
-            dec = _cached_decoder(face, args.alphabet, dopts, ropts, page.shape, device, banks,
-                                  mesh)
+            dec = GridDecoder(face, args.alphabet, dopts, ropts, page.shape, device,
+                              banks=banks, mesh=mesh)
             with metrics_run() as mrun:
                 for lines in decode_single_chunks(dec, page):
                     with span("focr_print"):

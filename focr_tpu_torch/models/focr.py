@@ -24,7 +24,6 @@ single-slot path's, bit for bit.
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from collections.abc import Mapping
 from dataclasses import dataclass
 
@@ -52,8 +51,9 @@ class _RowGroup:
 
 
 def _row_groups(dopts: DecodeOptions, H: int) -> list[_RowGroup]:
-    """Rows of the scan grid grouped by crop height (partial bottom rows get
-    their own group). Mirrors the crop clamp of image::crop_imm
+    """Rows of the scan grid grouped by crop height, in ascending y: the
+    full-height rows, then each partial bottom row (shorter the lower it is)
+    in a group of its own. Mirrors the crop clamp of image::crop_imm
     (main.rs:199-207)."""
     groups: dict[int, list[int]] = {}
     i = 0
@@ -176,60 +176,61 @@ class GridDecoder:
         banks: Mapping[int, FocrBank] | None = None,
         mesh=None,
     ):
-        if face is None and banks is None:
-            raise ValueError("GridDecoder: needs a face or a preloaded bank set")
-        self.face = face
-        self.alphabet = alphabet
-        self.dopts = dopts
-        self.ropts = ropts
-        self.page_shape = page_shape
-        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
-        self.device = resolve_device(
-            device if self.mesh is None else self.mesh.local_slots[0].device)
-        self.bank_set = banks
-        H, W = page_shape
-        self.x0 = min(dopts.x_start, W)
-        self.crop_w = max(min(dopts.width, W - self.x0), 0)
-        if not alphabet:
-            self.monospace = True
-        elif banks is not None:
-            # a loaded set names its kind; walking its values would decompress
-            # every crop height
-            kind = getattr(banks, "kind", None)
-            self.monospace = (
-                kind == "grid" if kind is not None
-                else not any(isinstance(b, PropBank) for b in banks.values())
-            )
-        else:
-            self.monospace = is_monospace(face, alphabet, ropts)
-        self._codes = np.array([ord(c) for c in alphabet], dtype=np.uint32)
-        self._ascii = bool(alphabet) and max(map(ord, alphabet)) < 128
-        # per row group its step: a StripForward, or with a mesh the sharded fn
-        self.groups: list[tuple[_RowGroup, object]] = []
-        self.prop_groups: list[tuple[_RowGroup, PropDecoder]] = []
-        self.banks: list[GridBank] = []
-        if self.crop_w > 0 and self.monospace:
-            for grp in _row_groups(dopts, H):
-                bank = self._bank(grp.crop_h)
-                self.banks.append(bank)
-                if self.mesh is not None:
-                    from focr_tpu_torch.parallel.decode import make_sharded_grid_fn
+        with span("focr_decoder_build"):  # the whole build, its height loads included
+            if face is None and banks is None:
+                raise ValueError("GridDecoder: needs a face or a preloaded bank set")
+            self.face = face
+            self.alphabet = alphabet
+            self.dopts = dopts
+            self.ropts = ropts
+            self.page_shape = page_shape
+            self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+            self.device = resolve_device(
+                device if self.mesh is None else self.mesh.local_slots[0].device)
+            self.bank_set = banks
+            H, W = page_shape
+            self.x0 = min(dopts.x_start, W)
+            self.crop_w = max(min(dopts.width, W - self.x0), 0)
+            if not alphabet:
+                self.monospace = True
+            elif banks is not None:
+                # a loaded set names its kind; walking its values would decompress
+                # every crop height
+                kind = getattr(banks, "kind", None)
+                self.monospace = (
+                    kind == "grid" if kind is not None
+                    else not any(isinstance(b, PropBank) for b in banks.values())
+                )
+            else:
+                self.monospace = is_monospace(face, alphabet, ropts)
+            self._codes = np.array([ord(c) for c in alphabet], dtype=np.uint32)
+            self._ascii = bool(alphabet) and max(map(ord, alphabet)) < 128
+            # per row group its step: a StripForward, or with a mesh the sharded fn
+            self.groups: list[tuple[_RowGroup, object]] = []
+            self.prop_groups: list[tuple[_RowGroup, PropDecoder]] = []
+            self.banks: list[GridBank] = []
+            if self.crop_w > 0 and self.monospace:
+                for grp in _row_groups(dopts, H):
+                    bank = self._bank(grp.crop_h)
+                    self.banks.append(bank)
+                    if self.mesh is not None:
+                        from focr_tpu_torch.parallel.decode import make_sharded_grid_fn
 
-                    fn = make_sharded_grid_fn(bank, grp.ys, self.x0, self.mesh)
-                else:
-                    fn = StripForward(bank, self.device)
-                self.groups.append((grp, fn))
-        if self.crop_w > 0 and not self.monospace:
-            prop = [(grp, self._bank(grp.crop_h)) for grp in _row_groups(dopts, H)]
-            if all(float(b.advances.min()) > 0 for _, b in prop):
-                self.prop_groups = [
-                    (grp, PropDecoder(b, self.crop_w, self.device, mesh=self.mesh))
-                    for grp, b in prop
-                ]
-            elif face is None:
-                # focr_tpu's route for a non-positive advance is the oracle,
-                # which renders every glyph
-                raise ValueError("a bank with a non-positive advance needs the font itself")
+                        fn = make_sharded_grid_fn(bank, grp.ys, self.x0, self.mesh)
+                    else:
+                        fn = StripForward(bank, self.device)
+                    self.groups.append((grp, fn))
+            if self.crop_w > 0 and not self.monospace:
+                prop = [(grp, self._bank(grp.crop_h)) for grp in _row_groups(dopts, H)]
+                if all(float(b.advances.min()) > 0 for _, b in prop):
+                    self.prop_groups = [
+                        (grp, PropDecoder(b, self.crop_w, self.device, mesh=self.mesh))
+                        for grp, b in prop
+                    ]
+                elif face is None:
+                    # focr_tpu's route for a non-positive advance is the oracle,
+                    # which renders every glyph
+                    raise ValueError("a bank with a non-positive advance needs the font itself")
 
     def _bank(self, crop_h: int) -> FocrBank:
         if self.bank_set is None:
@@ -297,23 +298,25 @@ class GridDecoder:
                 for b in range(B)
             ]
 
-    def _dispatch(self, pages: np.ndarray) -> tuple[int, list]:
-        """Crop every row group's strips into ONE flat host buffer (filled in
-        place), upload it once, and run each group's step on its slice. With
-        a mesh: pad the batch with white pages to a multiple of its size and
-        run each group's sharded step on the padded pages. Returns (pages in
-        the batch, each group's outputs)."""
+    def _dispatch(self, pages: np.ndarray, groups=None) -> tuple[list, int, list]:
+        """Crop the strips of ``groups`` (row groups and their steps, by
+        default every one) into ONE flat host buffer (filled in place), upload
+        it once, and run each group's step on its slice. With a mesh: pad the
+        batch with white pages to a multiple of its size and run each group's
+        sharded step on the padded pages. Returns (the groups, pages in the
+        batch, each group's outputs)."""
+        groups = self.groups if groups is None else groups
         n = pages.shape[0]
         if self.mesh is not None:
             pages, _ = pad_batch(pages, self.mesh.size)
             with span("focr_launch"):
-                return n, [fn(pages) for _, fn in self.groups]
+                return groups, n, [fn(pages) for _, fn in groups]
         B = pages.shape[0]
-        sizes = [B * len(g.ys) * g.crop_h * self.crop_w for g, _ in self.groups]
+        sizes = [B * len(g.ys) * g.crop_h * self.crop_w for g, _ in groups]
         with span("focr_crop"):
             flat = np.empty(sum(sizes), dtype=np.uint8)
             off = 0
-            for (grp, _), sz in zip(self.groups, sizes):
+            for (grp, _), sz in zip(groups, sizes):
                 view = flat[off : off + sz].reshape(B, len(grp.ys), grp.crop_h, self.crop_w)
                 crop_strips(pages, grp.ys, grp.crop_h, self.x0, self.crop_w, out=view)
                 off += sz
@@ -323,30 +326,28 @@ class GridDecoder:
         outs = []
         off = 0
         with span("focr_launch"):
-            for (grp, fwd), sz in zip(self.groups, sizes):
+            for (grp, fwd), sz in zip(groups, sizes):
                 strips = flat_d[off : off + sz].view(B, len(grp.ys), grp.crop_h, self.crop_w)
                 outs.append(fwd(strips))
                 off += sz
-        return n, outs
+        return groups, n, outs
 
     def _finish(self, outs) -> list[list[DecodedLine]]:
         """Fetch one batch's results and assemble text lines in ascending y
-        across the row groups."""
-        n, group_outs = outs
+        across the row groups it ran."""
+        groups, n, group_outs = outs
         # one round of copies for every group; a mesh's blocks come back in
         # page order, from every process that holds some
         with span("focr_fetch"):
             fetched = fetch_global(group_outs)
         with span("focr_assemble"):
-            per_row: dict[int, tuple[np.ndarray, np.ndarray]] = {}  # y -> (ids [B,C], white [B])
-            for (grp, _), (ids, white) in zip(self.groups, fetched):
-                ids, white = ids[:n], white[:n]  # mesh padding: the white filler pages go
-                for ri, y in enumerate(grp.ys):
-                    per_row[y] = (ids[:, ri], white[:, ri])
-            ys_sorted = sorted(per_row)
-            ids_all = np.stack([per_row[y][0] for y in ys_sorted], axis=1)  # [B, R, C]
-            white_all = np.stack([per_row[y][1] for y in ys_sorted], axis=1)  # [B, R]
-            return self._assemble(ids_all, white_all, ys_sorted)
+            # row groups come in ascending y (_row_groups: the full-height rows,
+            # then each shorter bottom row), so their rows join in page order;
+            # [:n] drops a mesh's white filler pages
+            ys = [y for grp, _ in groups for y in grp.ys]
+            ids_all = np.concatenate([ids[:n] for ids, _ in fetched], axis=1)  # [B, R, C]
+            white_all = np.concatenate([white[:n] for _, white in fetched], axis=1)  # [B, R]
+            return self._assemble(ids_all, white_all, ys)
 
     def _assemble(
         self, ids_all: np.ndarray, white_all: np.ndarray, ys_sorted: list[int]
@@ -373,34 +374,6 @@ class GridDecoder:
         return out
 
 
-_DECODER_CACHE: OrderedDict[tuple, GridDecoder] = OrderedDict()
-_DECODER_CACHE_MAX = 16
-
-
-def _cached_decoder(face, alphabet, dopts, ropts, shape, device, banks=None,
-                    mesh=None) -> GridDecoder:
-    """Reuse GridDecoders (and their banks on the device) across decode_pages
-    calls, LRU-evicted so a mixed-shape corpus never drops its hot decoder."""
-    # a bank set keys by identity: the cached decoder holds it, so its id
-    # cannot be reused by another object while the entry lives. The mesh keys
-    # by VALUE (its devices, their order, the axis sizes): an id() key could
-    # hand out a decoder built for a dead mesh whose address a new one reuses
-    key = (
-        face.path if face is not None else None, alphabet, dopts, ropts, shape,
-        str(resolve_device(device)), id(banks) if banks is not None else None, mesh,
-    )
-    dec = _DECODER_CACHE.get(key)
-    if dec is None:
-        with span("focr_decoder_build"):
-            dec = GridDecoder(face, alphabet, dopts, ropts, shape, device, banks=banks, mesh=mesh)
-        while len(_DECODER_CACHE) >= _DECODER_CACHE_MAX:
-            _DECODER_CACHE.popitem(last=False)  # evict least recently used
-        _DECODER_CACHE[key] = dec
-    else:
-        _DECODER_CACHE.move_to_end(key)
-    return dec
-
-
 def decode_pages(
     pages: list[np.ndarray],
     face: Face | None,
@@ -422,7 +395,7 @@ def decode_pages(
     with span("focr_bucket"):
         buckets = bucket_pages(pages)
     for bucket in buckets:
-        dec = _cached_decoder(face, alphabet, dopts, ropts, bucket.shape, device, banks, mesh)
+        dec = GridDecoder(face, alphabet, dopts, ropts, bucket.shape, device, banks, mesh)
         for s, decoded in decode_stream(dec, bucket.pages, batch_size):
             for j, lines in enumerate(decoded):
                 results[bucket.indices[s + j]] = lines
@@ -435,8 +408,8 @@ def decode_single_stream(dec: GridDecoder, page: np.ndarray, rows_per_chunk: int
 
     Mirrors the reference's single-image fast path, which prints every line
     the moment it is decoded (main.rs:427-440). Chunks of ``rows_per_chunk``
-    rows go through the same step as decode_batch, one after another; the
-    output equals ``decode_batch(page[None])[0]``."""
+    rows go through decode_batch's own stages (_dispatch, _finish), one after
+    another; the output equals ``decode_batch(page[None])[0]``."""
     for lines in decode_single_chunks(dec, page, rows_per_chunk):
         yield from lines
 
@@ -451,19 +424,8 @@ def decode_single_chunks(dec: GridDecoder, page: np.ndarray, rows_per_chunk: int
     # at the page bottom), so chunk order is row order
     for grp, fwd in dec.groups:
         for s in range(0, len(grp.ys), rows_per_chunk):
-            ys = grp.ys[s : s + rows_per_chunk]
-            with span("focr_crop"):
-                strips = crop_strips(page[None], ys, grp.crop_h, dec.x0, dec.crop_w)
-            with span("focr_upload"):
-                strips_d = torch.from_numpy(strips).to(dec.device)
-            count("strip_bytes_uploaded", strips.nbytes)
-            with span("focr_launch"):
-                ids, white = fwd(strips_d)
-            with span("focr_fetch"):
-                ids, white = ids.cpu().numpy(), white.cpu().numpy()
-            with span("focr_assemble"):
-                lines = dec._assemble(ids, white, list(ys))[0]
-            yield lines
+            chunk = _RowGroup(grp.crop_h, grp.ys[s : s + rows_per_chunk])
+            yield dec._finish(dec._dispatch(page[None], [(chunk, fwd)]))[0]
 
 
 def decode_stream(dec: GridDecoder, arr: np.ndarray, batch_size: int):

@@ -104,9 +104,8 @@ class Mesh:
     that drives each (all 0 in one process); ``rank`` is this process.
 
     Equal and hashable by value (device names, their order, the owning
-    ranks and the axis sizes), as jax.sharding.Mesh is: a cache keyed by a
-    mesh must not tell two equal meshes apart, nor take a new mesh at a dead
-    one's address for it."""
+    ranks and the axis sizes), as jax.sharding.Mesh is: two equal meshes are
+    one key, and a new mesh at a dead one's address is not taken for it."""
 
     def __init__(self, devices, glyph_shards: int = 1, ranks=None, rank: int = 0):
         names = [str(d) for d in devices]

@@ -297,16 +297,17 @@ def test_bank_set_first_load_is_guarded_and_close_keeps_loaded_heights(cache, tm
         banks[3]
 
 
-def test_cached_decoder_keys_on_the_bank_set():
-    from focr_tpu_torch.models.focr import _cached_decoder
+def test_decoder_loads_only_the_heights_of_its_grid():
+    """A decoder on a lazy set loads the crop heights its grid uses, each
+    once; a second decoder on the same set loads none again."""
+    from focr_tpu_torch.models.focr import GridDecoder
 
     banks, settings = tbank.load_grid_bank(FIXTURE)
-    other, _ = tbank.load_grid_bank(FIXTURE)
     dopts, tr = TDecodeOptions(**CANONICAL), TRenderOptions(size=13.0)
     args = (None, settings["alphabet"], dopts, tr, (100, 662), "cpu")
-    a = _cached_decoder(*args, banks)
-    assert _cached_decoder(*args, banks) is a and a.bank_set is banks
-    assert _cached_decoder(*args, other) is not a
+    dec = GridDecoder(*args, banks=banks)
+    assert dec.bank_set is banks and [g.crop_h for g, _ in dec.groups] == [12, 1]
+    GridDecoder(*args, banks=banks)
     assert sorted(banks.loads) == [1, 12]  # 100 rows: 4 full rows and a 1-pixel one
 
 

@@ -4,8 +4,10 @@ equal (text, y) lines on the cases of tests/test_focr_engine.py, the
 streamed single-page path, the proportional device path and the golden
 pages."""
 
+import gc
 import json
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -125,20 +127,28 @@ def test_decode_pages_multi_shape(faces):
     assert [[ln.text for ln in p] for p in got] == [["Hello"], ["world"], ["again"]]
 
 
-def test_decode_pages_reuses_decoders(faces):
+def test_decode_pages_keeps_no_decoder(faces, monkeypatch):
+    """decode_pages builds a decoder for each page shape of the call and
+    holds none of them, their device banks included, once it returns."""
     d = dict(x_start=5, y_start=6, line_height=13, line_advance=15, width=110)
     _, _, td, tr = _opts(size=11.0, **d)
     page = synthesize_page(faces[0], ["AB01"], DecodeOptions(**d), RenderOptions(size=11.0),
                            "AB01ab", (64, 128))
-    tfocr._DECODER_CACHE.clear()
+    built = []
+    init = tfocr.GridDecoder.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        built.append(weakref.ref(self))
+
+    monkeypatch.setattr(tfocr.GridDecoder, "__init__", spy)
     a = tfocr.decode_pages([page], faces[1], "AB01ab", td, tr, "cpu")
-    n = len(tfocr._DECODER_CACHE)
-    b = tfocr.decode_pages([page], faces[1], "AB01ab", td, tr, "cpu")
-    assert len(tfocr._DECODER_CACHE) == n and key(a) == key(b)
+    gc.collect()
+    assert len(built) == 1 and built[0]() is None
     assert a[0][0].text.startswith("AB01") and a[0][0].y == 6
-    tfocr.decode_pages([page], faces[1], "AB01ab", TDecodeOptions(**{**d, "x_start": 4}), tr,
-                       "cpu")
-    assert len(tfocr._DECODER_CACHE) == n + 1
+    b = tfocr.decode_pages([page], faces[1], "AB01ab", td, tr, "cpu")
+    gc.collect()
+    assert len(built) == 2 and built[1]() is None and key(a) == key(b)
 
 
 @pytest.mark.parametrize("rows_per_chunk,n_rows", [(2, 8), (1, 24), (16, 8)])

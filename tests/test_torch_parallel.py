@@ -456,10 +456,10 @@ def test_page_mesh_layout_and_errors():
     assert tmesh.page_mesh().size == 1  # no card here: the CPU, once
 
 
-def test_mesh_is_keyed_by_value(mono_font_path):
-    """Equal meshes are one key (a decoder cache must not tell them apart,
-    nor mistake a new mesh at a dead one's address for it); other devices,
-    another order, other axis sizes or owning ranks are other keys."""
+def test_mesh_is_keyed_by_value():
+    """Equal meshes are one key, as jax.sharding.Mesh's are (a new mesh at a
+    dead one's address is not taken for it); other devices, another order,
+    other axis sizes or owning ranks are other keys."""
     a, b = cpu_mesh(4, 2), cpu_mesh(4, 2)
     assert a is not b and a == b and hash(a) == hash(b) and len({a, b}) == 1
     others = [cpu_mesh(4, 1), cpu_mesh(4, 4), cpu_mesh(8, 2),
@@ -467,13 +467,6 @@ def test_mesh_is_keyed_by_value(mono_font_path):
               tmesh.Mesh(["cuda:0", "cpu", "cpu", "cpu"], 2),
               tmesh.Mesh(["cpu"] * 4, 2, ranks=[0, 0, 1, 1])]
     assert len({a, *others}) == 1 + len(others) and a != "mesh"
-    args = (TFace(mono_font_path), "AB", TDecodeOptions(width=40, line_height=12,
-                                                         line_advance=14),
-            TRenderOptions(size=10.0), (30, 60), "cpu")
-    dec = tfocr._cached_decoder(*args, None, a)
-    assert tfocr._cached_decoder(*args, None, b) is dec and dec.mesh == a
-    assert tfocr._cached_decoder(*args, None, cpu_mesh(4, 1)) is not dec
-    assert tfocr._cached_decoder(*args, None, None).mesh is None
 
 
 def test_auto_mesh_policy(monkeypatch):

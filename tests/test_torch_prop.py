@@ -275,7 +275,6 @@ def test_device_path_never_calls_the_oracle(faces, monkeypatch):
 
     monkeypatch.setattr(toracle, "decode_image", no_oracle)
     monkeypatch.setattr(toracle, "decode_line", no_oracle)
-    tfocr._DECODER_CACHE.clear()
     got = tfocr.decode_pages(list(pages), faces[1], ALPHA, TDecodeOptions(**d),
                              TRenderOptions(size=12.0), "cpu")
     assert key(got) == key(want)
