@@ -71,7 +71,8 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     reset_counters("bank_bytes_loaded", "strip_bytes_uploaded", "bank_cache_hits",
-                   "bank_cache_misses", "prop_lines_scanned", "prop_steps", "prop_strips_white")
+                   "bank_cache_misses", "prop_lines_scanned", "prop_steps", "prop_strips_white",
+                   "pages_mapped", "pages_decoded")
     if args.verify is not None:
         assert os.path.isdir(args.verify), "--verify should be a dir"
 

@@ -25,6 +25,11 @@ formats (JPEG, TIFF, ...) go through Pillow where it is installed and raise
 where it is not. ``save_gray`` writes .pgm and .png itself, ``save_rgb`` and
 ``save_rgba`` .png (colour types 2 and 6).
 
+Raw 8-bit gray pages (P5, maxval 255: what pdfimages writes) are not read:
+``load_gray_many`` and ``load_gray_many_isolated`` map each such file
+read-only and return a view of its raster, so the first copy of its pixels is
+the decoder's crop (``map_gray``).
+
 Batching (focr): pages are grouped into same-shape buckets, decoded a batch
 at a time.
 """
@@ -32,12 +37,20 @@ at a time.
 from __future__ import annotations
 
 import concurrent.futures as _futures
+import ctypes
+import functools
+import mmap
+import os
 import re
+import stat
 import struct
+import weakref
 import zlib
 from dataclasses import dataclass
 
 import numpy as np
+
+from focr_tpu_torch.utils.metrics import count
 
 _PNM_WHITESPACE = b" \t\n\v\f\r"
 _PNM_MAGIC = (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6")
@@ -149,7 +162,7 @@ def _read_pnm(data: bytes, path: str) -> np.ndarray:
     if out_max == 65535:
         v = v >> 8
     if ch == 1:
-        return v.astype(np.uint8).reshape(H, W)
+        return v.astype(np.uint8, copy=False).reshape(H, W)
     return _luma(v.reshape(H, W, 3))
 
 
@@ -318,16 +331,105 @@ def load_gray(path: str) -> np.ndarray:
     return _luma(rgb)
 
 
-def load_gray_many(paths: list[str], max_workers: int = 8) -> list[np.ndarray]:
-    """Threaded page loader (file reads, zlib and NumPy release the GIL).
+_MAP_FAILED = ctypes.c_void_p(-1).value
 
-    Replaces the reference's rayon page fan-out for the I/O stage
-    (main.rs:442-448); the first unreadable page raises.
-    """
+
+@functools.cache
+def _libc() -> ctypes.CDLL:
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.argtypes = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_long)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.munmap.argtypes = (ctypes.c_void_p, ctypes.c_size_t)
+    libc.munmap.restype = ctypes.c_int
+    return libc
+
+
+def _map_file(fd: int, size: int) -> ctypes.Array:
+    """The first ``size`` bytes of the open file ``fd`` mapped read-only, as a
+    ctypes byte array; unmapped when the array is collected. libc's mmap holds
+    no descriptor of its own (Python's mmap.mmap keeps a duplicate of each
+    file's), so the caller closes ``fd`` at once. MAP_POPULATE (where the
+    platform has it) maps every page of the file in the one call, so reading
+    the map later takes no page fault. Raises OSError where the map fails
+    (ENOMEM past the process's map count, for one)."""
+    libc = _libc()
+    flags = mmap.MAP_PRIVATE | getattr(mmap, "MAP_POPULATE", 0)
+    addr = libc.mmap(None, size, mmap.PROT_READ, flags, fd, 0)
+    if addr is None or addr == _MAP_FAILED:
+        err = ctypes.get_errno()
+        raise OSError(err, os.strerror(err))
+    buf = (ctypes.c_ubyte * size).from_address(addr)
+    # not at exit: a view still alive then must stay readable; the OS unmaps it with the process
+    weakref.finalize(buf, libc.munmap, addr, size).atexit = False
+    return buf
+
+
+def map_gray(path: str) -> np.ndarray | None:
+    """A raw 8-bit gray page (P5, maxval 255) as a read-only u8 [H, W] view of
+    its file mapped into memory, the bytes load_gray gives; None where the
+    file is not a regular, non-empty file holding such a page with its whole
+    raster, or where the map fails: load_gray then reads it, and raises what
+    it raises. The map lives as long as the last view of the page; no file
+    descriptor is held. A page file truncated by another process while its
+    view lives ends the process with SIGBUS, as with any reader that maps its
+    input."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return None
+    try:
+        st = os.fstat(fd)
+        if not stat.S_ISREG(st.st_mode) or st.st_size < 3:
+            return None
+        buf = _map_file(fd, st.st_size)
+    except OSError:
+        return None
+    finally:
+        os.close(fd)
+    data = memoryview(buf).toreadonly().cast("B")
+    if data[:2] != b"P5" or data[2] not in _PNM_WHITESPACE:
+        return None
+    try:
+        W, i = _pnm_token(data, 3, path)
+        H, i = _pnm_token(data, i, path)
+        maxval, i = _pnm_token(data, i, path)
+        W, H, maxval = int(W), int(H), int(maxval)
+    except ValueError:
+        return None
+    if maxval != 255 or W <= 0 or H <= 0 or len(data) - i < H * W:
+        return None
+    return np.frombuffer(data, np.uint8, H * W, i).reshape(H, W)
+
+
+def _map_pages(paths: list[str]) -> tuple[list[np.ndarray | None], list[int]]:
+    """Each page that map_gray maps, on the calling thread, and the indices of
+    the rest, ascending; counts the pages mapped."""
+    pages = [map_gray(p) for p in paths]
+    rest = [k for k, page in enumerate(pages) if page is None]
+    count("pages_mapped", len(paths) - len(rest))
+    return pages, rest
+
+
+def _read_each(fn, paths: list[str], max_workers: int) -> list:
+    """fn over paths, in order: on the calling thread for one path, else on a
+    pool of threads (file reads, zlib and NumPy release the GIL)."""
     if len(paths) <= 1:
-        return [load_gray(p) for p in paths]
+        return [fn(p) for p in paths]
     with _futures.ThreadPoolExecutor(max_workers=max_workers) as ex:
-        return list(ex.map(load_gray, paths))
+        return list(ex.map(fn, paths))
+
+
+def load_gray_many(paths: list[str], max_workers: int = 8) -> list[np.ndarray]:
+    """Page loader: raw 8-bit gray pages mapped (map_gray), the rest read by
+    load_gray on a pool of threads (the reference's rayon page fan-out for the
+    I/O stage, main.rs:442-448); the first unreadable page raises. Counts the
+    pages mapped and the pages read."""
+    pages, rest = _map_pages(paths)
+    for k, page in zip(rest, _read_each(load_gray, [paths[k] for k in rest], max_workers)):
+        pages[k] = page
+    count("pages_decoded", len(rest))
+    return pages
 
 
 def load_gray_many_isolated(
@@ -335,7 +437,9 @@ def load_gray_many_isolated(
 ) -> tuple[list[np.ndarray | None], list[tuple[int, str]]]:
     """Fault-isolating page loader: a bad page yields None for its slot plus
     an (index, error) record instead of killing the whole batch (the
-    reference panics on the first unreadable page, main.rs:448)."""
+    reference panics on the first unreadable page, main.rs:448). Raw 8-bit
+    gray pages are mapped as in load_gray_many; counts the pages mapped and
+    the pages read."""
 
     def one(path: str):
         try:
@@ -343,10 +447,13 @@ def load_gray_many_isolated(
         except Exception as e:  # noqa: BLE001 - isolate any per-page failure
             return None, f"{type(e).__name__}: {e}"
 
-    with _futures.ThreadPoolExecutor(max_workers=max_workers) as ex:
-        results = list(ex.map(one, paths))
-    pages = [r[0] for r in results]
-    errors = [(i, r[1]) for i, r in enumerate(results) if r[1] is not None]
+    pages, rest = _map_pages(paths)
+    errors = []
+    for k, (page, err) in zip(rest, _read_each(one, [paths[k] for k in rest], max_workers)):
+        pages[k] = page
+        if err is not None:
+            errors.append((k, err))
+    count("pages_decoded", len(rest) - len(errors))
     return pages, errors
 
 
@@ -408,11 +515,12 @@ def save_rgba(path: str, img: np.ndarray) -> None:
 
 @dataclass(frozen=True)
 class Bucket:
-    """Pages sharing one (H, W) shape, batched into a single array."""
+    """Pages sharing one (H, W) shape. The pages are not stacked: the
+    decoder crops each one where it lies (a mapped page: in its file's map)."""
 
     shape: tuple[int, int]
     indices: list[int]  # original page indices, in order
-    pages: np.ndarray  # [B, H, W] u8
+    pages: list[np.ndarray]  # the bucket's [H, W] u8 pages, in order
 
 
 def bucket_pages(pages: list[np.ndarray]) -> list[Bucket]:
@@ -420,7 +528,5 @@ def bucket_pages(pages: list[np.ndarray]) -> list[Bucket]:
     groups: dict[tuple[int, int], list[int]] = {}
     for i, p in enumerate(pages):
         groups.setdefault(p.shape, []).append(i)
-    return [
-        Bucket(shape=shape, indices=idxs, pages=np.stack([pages[i] for i in idxs], axis=0))
-        for shape, idxs in groups.items()
-    ]
+    return [Bucket(shape=shape, indices=idxs, pages=[pages[i] for i in idxs])
+            for shape, idxs in groups.items()]

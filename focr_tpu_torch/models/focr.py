@@ -4,7 +4,7 @@ Counterpart of focr_tpu/models/focr.py. Replaces the reference's per-page
 sequential decode (decode_image/decode_line/score_glyph, main.rs:87-239) with
 one device step per batch and row group:
 
-  pages [B, H, W] u8
+  pages: B same-shape [H, W] u8 (a mapped page is cropped in its map)
     -> crop the line strips on the host       (crop_strips, one upload)
     -> K4 ssd_argmin: invert, all-white flag, per-cell windows,
        exact-integer SSD metric, first-min argmin (ops/ssd_kernels.py)
@@ -24,7 +24,7 @@ single-slot path's, bit for bit.
 
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Mapping, Sequence
 from dataclasses import dataclass
 
 import numpy as np
@@ -90,53 +90,86 @@ class StripForward(torch.nn.Module):
         return ssd_argmin(strips, self.templates, self.tsq, self.wx0, bfrag=self.bfrag)
 
 
+def _grid_view(page: np.ndarray, ys: tuple[int, ...], crop_h: int, x0: int,
+               crop_w: int) -> np.ndarray | None:
+    """The strips of rows ``ys`` on one [H, W] page as one read-only strided
+    view [R, crop_h, crop_w], where the rows are evenly spaced (as _row_groups
+    makes each group's) and every strip lies inside the page; else None."""
+    H, W = page.shape
+    step = ys[1] - ys[0] if len(ys) > 1 else 0
+    if (min(min(ys), x0) < 0 or max(ys) + crop_h > H or x0 + crop_w > W
+            or ys != tuple(ys[0] + i * step for i in range(len(ys)))):
+        return None
+    base = page[ys[0]:, x0 : x0 + crop_w]
+    sy, sx = base.strides
+    return np.lib.stride_tricks.as_strided(
+        base, (len(ys), crop_h, crop_w), (step * sy, sy, sx), writeable=False)
+
+
 def crop_strips(
-    pages: np.ndarray, ys: tuple[int, ...], crop_h: int, x0: int, crop_w: int,
+    pages: Sequence[np.ndarray], ys: tuple[int, ...], crop_h: int, x0: int, crop_w: int,
     out: np.ndarray | None = None,
 ):
-    """Host-side scan-rectangle crop: [B, H, W] -> [B, R, crop_h, crop_w] u8.
+    """Host-side scan-rectangle crop: B same-shape [H, W] pages (a [B, H, W]
+    array, or a list) -> [B, R, crop_h, crop_w] u8, one copy a page from its
+    strided view of the rows (_grid_view), where the pages lie.
 
     Rows whose rectangle hangs past the page bottom are white-padded — the
     caller only passes ys whose crop height equals crop_h (see _row_groups),
     so padding never actually materializes for grouped rows. ``out`` lets the
     caller fill a view of a preallocated buffer."""
-    B, H, W = pages.shape
     if out is None:
-        out = np.empty((B, len(ys), crop_h, crop_w), dtype=np.uint8)
-    for ri, y in enumerate(ys):
-        h = min(crop_h, H - y)
-        out[:, ri, :h] = pages[:, y : y + h, x0 : x0 + crop_w]
-        if h < crop_h:
-            out[:, ri, h:] = 255
+        out = np.empty((len(pages), len(ys), crop_h, crop_w), dtype=np.uint8)
+    for b, page in enumerate(pages):
+        view = _grid_view(page, ys, crop_h, x0, crop_w)
+        if view is not None:
+            out[b] = view
+            continue
+        H = page.shape[0]
+        for ri, y in enumerate(ys):
+            h = min(crop_h, H - y)
+            out[b, ri, :h] = page[y : y + h, x0 : x0 + crop_w]
+            if h < crop_h:
+                out[b, ri, h:] = 255
     return out
 
 
 def inked_strips(
-    pages: np.ndarray, grp: _RowGroup, x0: int, crop_w: int,
+    pages: Sequence[np.ndarray], grp: _RowGroup, x0: int, crop_w: int,
 ) -> tuple[np.ndarray, np.ndarray]:
     """One row group's inked strips, inverted, straight from the pages:
-    [B, H, W] u8 -> (page-major indices b * R + r of the inked strips,
-    [L, crop_h, crop_w] u8 of 255 - pixel), and counts the white strips the
-    ink test dropped. The group's ys are evenly spaced (_row_groups: the
-    full-height rows in one group, each partial bottom height alone), so the
-    strips are one strided view of the pages; a strip holds ink exactly when
-    its least pixel is below 255, so the test copies nothing, and only the
-    inked strips are gathered, then inverted in place."""
-    ys, (H, W) = grp.ys, pages.shape[1:]
-    step = ys[1] - ys[0] if len(ys) > 1 else 0
-    if (min(ys[0], x0) < 0 or ys[-1] + grp.crop_h > H or x0 + crop_w > W
-            or ys != tuple(ys[0] + i * step for i in range(len(ys)))):
-        raise ValueError(f"focr prop strips: rows {ys} of height {grp.crop_h} at x {x0}, width "
-                         f"{crop_w}, are not an even grid inside a {H}x{W} page")
-    base = pages[:, ys[0]:, x0 : x0 + crop_w]
-    sb, sy, sx = base.strides
-    view = np.lib.stride_tricks.as_strided(
-        base, (len(pages), len(ys), grp.crop_h, crop_w), (sb, step * sy, sy, sx), writeable=False)
-    b, r = np.nonzero(view.min(axis=(2, 3)) < 255)
-    count("prop_strips_white", len(pages) * len(ys) - len(b))
-    lines = view[b, r]
+    B same-shape [H, W] u8 pages -> (page-major indices b * R + r of the
+    inked strips, [L, crop_h, crop_w] u8 of 255 - pixel), and counts the
+    white strips the ink test dropped. The group's ys are evenly spaced
+    (_row_groups: the full-height rows in one group, each partial bottom
+    height alone), so a page's strips are one strided view of it
+    (_grid_view); a strip holds ink exactly when its least pixel is below
+    255, so the test copies nothing, and only the inked strips are gathered,
+    into one array, then inverted in place."""
+    R = len(grp.ys)
+    views = [_grid_view(page, grp.ys, grp.crop_h, x0, crop_w) for page in pages]
+    if any(v is None for v in views):
+        H, W = pages[0].shape
+        raise ValueError(f"focr prop strips: rows {grp.ys} of height {grp.crop_h} at x {x0}, "
+                         f"width {crop_w}, are not an even grid inside a {H}x{W} page")
+    rows = [np.flatnonzero(v.min(axis=(1, 2)) < 255) for v in views]
+    n = sum(len(r) for r in rows)
+    count("prop_strips_white", len(pages) * R - n)
+    lines = np.empty((n, grp.crop_h, crop_w), np.uint8)
+    off = 0
+    for v, r in zip(views, rows):
+        # one copy a run of consecutive inked rows, straight into ``lines``
+        # (a fancy index would gather into a temporary first)
+        inked = r.tolist()
+        start = 0
+        for k in range(1, len(inked) + 1):
+            if k == len(inked) or inked[k] != inked[k - 1] + 1:
+                lines[off : off + k - start] = v[inked[start] : inked[k - 1] + 1]
+                off += k - start
+                start = k
     np.subtract(255, lines, out=lines)
-    return b * len(ys) + r, lines
+    idx = [b * R + r for b, r in enumerate(rows)]
+    return (np.concatenate(idx) if idx else np.zeros(0, np.int64)), lines
 
 
 def make_grid_forward(bank: GridBank, ys: tuple[int, ...], x0: int, device):
@@ -145,7 +178,7 @@ def make_grid_forward(bank: GridBank, ys: tuple[int, ...], x0: int, device):
     dev = resolve_device(device)
     fwd = StripForward(bank, dev)
 
-    def fn(pages: np.ndarray):
+    def fn(pages: Sequence[np.ndarray]):
         strips = crop_strips(pages, ys, bank.crop_h, x0, bank.crop_w)
         return fwd(torch.from_numpy(strips).to(dev))
 
@@ -250,10 +283,13 @@ class GridDecoder:
             )
         return bank
 
-    def decode_batch(self, pages: np.ndarray) -> list[list[DecodedLine]]:
-        """pages [B, H, W] u8 -> per-page decoded lines in row order."""
-        assert pages.shape[1:] == self.page_shape
-        B = pages.shape[0]
+    def decode_batch(self, pages: Sequence[np.ndarray]) -> list[list[DecodedLine]]:
+        """B [H, W] u8 pages of the decoder's shape (a [B, H, W] array, or a
+        list) -> per-page decoded lines in row order."""
+        if any(p.shape != self.page_shape for p in pages):
+            raise ValueError(f"GridDecoder: pages of shapes {sorted({p.shape for p in pages})}, "
+                             f"not {self.page_shape}")
+        B = len(pages)
         if self.crop_w == 0:
             # zero-width crop: the all-white skip fires on every row
             # (empty-iterator all() == true), so no lines are ever emitted.
@@ -271,12 +307,12 @@ class GridDecoder:
             ]
         return self._finish(self._dispatch(pages))
 
-    def _decode_prop(self, pages: np.ndarray) -> list[list[DecodedLine]]:
+    def _decode_prop(self, pages: Sequence[np.ndarray]) -> list[list[DecodedLine]]:
         """Proportional-font batch decode through K5, one launch per row
         group that holds ink (focr_tpu/models/focr.py:241-268). All-white
         strips are dropped on the pages, before any copy: the row loop drops
         their text (main.rs:208-211)."""
-        B = pages.shape[0]
+        B = len(pages)
         with span("focr_prop_strips"):
             work = [(grp, dec, B * len(grp.ys), *inked_strips(pages, grp, self.x0, self.crop_w))
                     for grp, dec in self.prop_groups]
@@ -298,20 +334,19 @@ class GridDecoder:
                 for b in range(B)
             ]
 
-    def _dispatch(self, pages: np.ndarray, groups=None) -> tuple[list, int, list]:
+    def _dispatch(self, pages: Sequence[np.ndarray], groups=None) -> tuple[list, int, list]:
         """Crop the strips of ``groups`` (row groups and their steps, by
-        default every one) into ONE flat host buffer (filled in place), upload
-        it once, and run each group's step on its slice. With a mesh: pad the
-        batch with white pages to a multiple of its size and run each group's
-        sharded step on the padded pages. Returns (the groups, pages in the
-        batch, each group's outputs)."""
+        default every one) from each page into ONE flat host buffer (filled
+        in place), upload it once, and run each group's step on its slice.
+        With a mesh: stack the batch, pad it with white pages to a multiple
+        of its size and run each group's sharded step on the padded pages.
+        Returns (the groups, pages in the batch, each group's outputs)."""
         groups = self.groups if groups is None else groups
-        n = pages.shape[0]
+        B = len(pages)
         if self.mesh is not None:
-            pages, _ = pad_batch(pages, self.mesh.size)
+            padded, _ = pad_batch(np.stack(pages), self.mesh.size)
             with span("focr_launch"):
-                return groups, n, [fn(pages) for _, fn in groups]
-        B = pages.shape[0]
+                return groups, B, [fn(padded) for _, fn in groups]
         sizes = [B * len(g.ys) * g.crop_h * self.crop_w for g, _ in groups]
         with span("focr_crop"):
             flat = np.empty(sum(sizes), dtype=np.uint8)
@@ -330,7 +365,7 @@ class GridDecoder:
                 strips = flat_d[off : off + sz].view(B, len(grp.ys), grp.crop_h, self.crop_w)
                 outs.append(fwd(strips))
                 off += sz
-        return groups, n, outs
+        return groups, B, outs
 
     def _finish(self, outs) -> list[list[DecodedLine]]:
         """Fetch one batch's results and assemble text lines in ascending y
@@ -428,7 +463,8 @@ def decode_single_chunks(dec: GridDecoder, page: np.ndarray, rows_per_chunk: int
             yield dec._finish(dec._dispatch(page[None], [(chunk, fwd)]))[0]
 
 
-def decode_stream(dec: GridDecoder, arr: np.ndarray, batch_size: int):
-    """Yield (start_index, decoded_lines) per batch, one batch at a time."""
-    for s in range(0, arr.shape[0], batch_size):
-        yield s, dec.decode_batch(arr[s : s + batch_size])
+def decode_stream(dec: GridDecoder, pages: Sequence[np.ndarray], batch_size: int):
+    """Yield (start_index, decoded_lines) per batch of ``pages`` (a list, or a
+    [B, H, W] array), one batch at a time."""
+    for s in range(0, len(pages), batch_size):
+        yield s, dec.decode_batch(pages[s : s + batch_size])

@@ -328,9 +328,13 @@ def test_metrics_json_matches_focr_tpu(setup, capsys, tmp_path, pages):
     assert set(got) == set(want) | {"counters"}
     assert set(got["counters"]) == {"bank_bytes_loaded", "strip_bytes_uploaded",
                                     "bank_cache_hits", "bank_cache_misses",
-                                    "prop_lines_scanned", "prop_steps", "prop_strips_white"}
+                                    "prop_lines_scanned", "prop_steps", "prop_strips_white",
+                                    "pages_mapped", "pages_decoded"}
     # fonts, no saved set: nothing is read from the bank cache's raw copies
     assert got["counters"]["bank_cache_hits"] == got["counters"]["bank_cache_misses"] == 0
+    # every readable page is a raw 8-bit PGM, mapped; the bad one is read, and fails
+    assert got["counters"]["pages_mapped"] == len([p for p in pages if p != "bad"])
+    assert got["counters"]["pages_decoded"] == 0
     for k in ("tool", "pages", "decoded_pages", "lines", "errors"):
         assert got[k] == want[k], k
     assert got["decode_seconds"] > 0 and got["pages_per_sec"] == pytest.approx(
@@ -435,7 +439,8 @@ def test_metrics_json_counts_the_exact_bytes(setup, grid_bank, tmp_path, monkeyp
                    for k in ("templates", "tsq", "wx0", "positions"))
     assert got == {"bank_bytes_loaded": bank, "strip_bytes_uploaded": strips,
                    "bank_cache_hits": 0, "bank_cache_misses": len(heights),
-                   "prop_lines_scanned": 0, "prop_steps": 0, "prop_strips_white": 0}
+                   "prop_lines_scanned": 0, "prop_steps": 0, "prop_strips_white": 0,
+                   "pages_mapped": len(pages), "pages_decoded": 0}
     assert again == {**got, "bank_cache_hits": len(heights), "bank_cache_misses": 0}
     assert strips > 0 and bank > 0
 
