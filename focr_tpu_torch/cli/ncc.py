@@ -6,6 +6,13 @@ diagnostics. --rust routes to the host differential oracle, exactly like the
 reference's flag switches between the C and Rust kernels; --engine native runs
 the C++ host search (native/ncc_cpu.py). --device-kernel and --wire are
 accepted and unused (one kernel, no wire codec).
+
+Pages are read as focr reads them (io/images.py::load_gray_many_isolated, or
+load_gray_many under --strict): a raw 8-bit P5 page is mapped read-only, the
+rest read on a pool. The call's stages are named spans (ncc_bank_load,
+ncc_matcher_build, ncc_page_read, ncc_print; the search's own in
+models/ncc.py), its counters are zeroed at the start of main() and
+--metrics-json reports them.
 """
 
 from __future__ import annotations
@@ -14,7 +21,6 @@ import argparse
 import os
 import sys
 
-import numpy as np
 import torch
 
 from focr_tpu_torch.fonts.ft import Face, HintingOptions
@@ -104,14 +110,11 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.verbose_sync:
         args.verbose = True
-    from focr_tpu_torch.fonts.bank import bank_settings, load_needle_bank
-    from focr_tpu_torch.io.images import load_gray, save_gray
-    from focr_tpu_torch.models.ncc import NccMatcher, _f32
-    from focr_tpu_torch.models.post import (
-        process_hits, process_hits_struct, process_hits_text,
-    )
     from focr_tpu_torch.utils.device import resolve_device
-    from focr_tpu_torch.utils.metrics import metrics_run, write_metrics
+    from focr_tpu_torch.utils.metrics import profiling, reset_counters
+
+    reset_counters("ncc_candidates", "ncc_hits", "ncc_host_waits", "ncc_post_ns",
+                   "pages_mapped", "pages_decoded")
 
     hinting = HintingOptions(full=True, size=args.text_size) if args.hinting else HintingOptions()
     ropts = RenderOptions(size=args.text_size, hinting=hinting)
@@ -123,15 +126,32 @@ def main(argv: list[str] | None = None) -> int:
         print(f"ncc: error: {e}", file=sys.stderr)
         return 2
 
+    # the operator's trace (--profile) holds the whole call: bank load to last line
+    with profiling(args.profile, device.type == "cuda"):
+        return _run(args, engine, device, ropts, box)
+
+
+def _run(args, engine: str, device: torch.device, ropts: RenderOptions, box: BoxSize) -> int:
+    from focr_tpu_torch.fonts.bank import bank_settings, load_needle_bank
+    from focr_tpu_torch.io.images import (
+        load_gray, load_gray_many, load_gray_many_isolated, save_gray,
+    )
+    from focr_tpu_torch.models.ncc import NccMatcher, _f32
+    from focr_tpu_torch.models.post import (
+        process_hits, process_hits_struct, process_hits_text,
+    )
+    from focr_tpu_torch.utils.metrics import COUNTERS, metrics_run, span, write_metrics
+
     needles = None
     if args.needle_bank is not None:
-        needles, saved = load_needle_bank(args.needle_bank)
-        want = bank_settings(args.font, args.alphabet, ropts, box, args.x_bits,
-                             args.y_bits, (args.x_padding, args.y_padding))
-        if saved != want:
-            print(f"ncc: error: {args.needle_bank} was rendered with {saved}, "
-                  f"the flags ask for {want}", file=sys.stderr)
-            return 2
+        with span("ncc_bank_load"):
+            needles, saved = load_needle_bank(args.needle_bank)
+            want = bank_settings(args.font, args.alphabet, ropts, box, args.x_bits,
+                                 args.y_bits, (args.x_padding, args.y_padding))
+            if saved != want:
+                print(f"ncc: error: {args.needle_bank} was rendered with {saved}, "
+                      f"the flags ask for {want}", file=sys.stderr)
+                return 2
     # the font itself is opened only when something needs FreeType
     need_face = needles is None or args.raw or args.save_letters
     face = Face(args.font) if need_face else None
@@ -146,18 +166,19 @@ def main(argv: list[str] | None = None) -> int:
         if face is not None:
             _verbose_metrics(face, args.alphabet, args.text_size)
 
-    matcher = NccMatcher(
-        face,
-        args.alphabet,
-        ropts,
-        box_size=box,
-        x_bits=args.x_bits,
-        y_bits=args.y_bits,
-        padding=(args.x_padding, args.y_padding),
-        threshold=args.threshold,
-        device=device,
-        needles=needles,
-    )
+    with span("ncc_matcher_build"):
+        matcher = NccMatcher(
+            face,
+            args.alphabet,
+            ropts,
+            box_size=box,
+            x_bits=args.x_bits,
+            y_bits=args.y_bits,
+            padding=(args.x_padding, args.y_padding),
+            threshold=args.threshold,
+            device=device,
+            needles=needles,
+        )
 
     if args.save_letters:
         os.makedirs("letters", exist_ok=True)
@@ -175,23 +196,25 @@ def main(argv: list[str] | None = None) -> int:
     }[engine]
     if args.raw:
         assert len(args.img) == 1
-        page = load_gray(args.img[0])
+        with span("ncc_page_read"):
+            page = load_gray(args.img[0])
         if engine == "device":
             get(page, verbose=args.verbose, raw=True, out=sys.stdout, sync=args.verbose_sync)
         else:
             get(page, verbose=args.verbose, raw=True, out=sys.stdout)
         return 0
 
-    errors: list[tuple[int, str]] = []
-    loaded: list[tuple[int, np.ndarray]] = []
-    for i, path in enumerate(args.img):
-        try:
-            loaded.append((i, load_gray(path)))
-        except Exception as e:  # noqa: BLE001 - per-page isolation (§5.3)
-            if args.strict:
-                raise
-            errors.append((i, f"{type(e).__name__}: {e}"))
-            print(f"ERROR {path}: {type(e).__name__}: {e}", file=sys.stderr)
+    # raw 8-bit gray pages are mapped read-only (nothing downstream writes into
+    # a page), the rest read on a pool; a bad page keeps its place in the output
+    with span("ncc_page_read"):
+        if args.strict:
+            read = load_gray_many(args.img)
+            errors: list[tuple[int, str]] = []
+        else:
+            read, errors = load_gray_many_isolated(args.img)
+    for i, err in errors:
+        print(f"ERROR {args.img[i]}: {err}", file=sys.stderr)
+    loaded = [(i, p) for i, p in enumerate(read) if p is not None]
 
     # the array-form (struct) pipeline skips per-hit object creation; verbose
     # diagnostics need the object form (per-hit dumps). Text output fuses
@@ -210,7 +233,7 @@ def main(argv: list[str] | None = None) -> int:
         text_post = lambda hs: process_hits_text(  # noqa: E731
             hs, args.anchor_threshold, args.overlap)
     pages = [p for _, p in loaded]
-    with metrics_run(args.profile, device.type == "cuda") as mrun:
+    with metrics_run() as mrun:
         if engine == "device" and args.verbose_sync:
             # measurement mode: per-page fenced dispatch, no pipeline and no
             # sharding, so the stderr timing lines are wall-clock truth
@@ -247,18 +270,19 @@ def main(argv: list[str] | None = None) -> int:
     lines_by_page = {i: h for (i, _), h in zip(loaded, hit_lines)}
     pages_out = [(i, lines_by_page.get(i, [])) for i in range(len(args.img))]
 
-    if args.csv:
-        for i, lines in pages_out:
-            for line in lines:
-                for m in line:
-                    cx, cy = m.center
-                    print(
-                        f"{i},{ord(m.letter)},{_f32(cx)},{_f32(cy)},{m.x},{m.y},{m.w},{m.h}"
-                    )
-    else:
-        for _, lines in pages_out:
-            for line in lines:
-                print(line if isinstance(line, str) else "".join(m.letter for m in line))
+    with span("ncc_print"):
+        if args.csv:
+            for i, lines in pages_out:
+                for line in lines:
+                    for m in line:
+                        cx, cy = m.center
+                        print(
+                            f"{i},{ord(m.letter)},{_f32(cx)},{_f32(cy)},{m.x},{m.y},{m.w},{m.h}"
+                        )
+        else:
+            for _, lines in pages_out:
+                for line in lines:
+                    print(line if isinstance(line, str) else "".join(m.letter for m in line))
 
     if args.metrics_json is not None:
         write_metrics(
@@ -271,6 +295,7 @@ def main(argv: list[str] | None = None) -> int:
             errors=[{"page": args.img[i], "error": e} for i, e in errors],
             search_seconds=mrun.seconds,
             engine=engine,
+            counters=dict(COUNTERS),
         )
     return 0
 

@@ -22,7 +22,12 @@ works on a side stream, so a wave's upload and sweep run under the previous
 wave's collection; uploads and fetches go through pinned host buffers that a
 wave holds until its event has been waited on (_PinnedPool). Each stage is a
 named span in a torch.profiler trace (focr_ncc_dispatch_wave,
-focr_ncc_fetch_wave, focr_ncc_collect_wave; --profile). Every device
+focr_ncc_fetch_wave, focr_ncc_collect_wave; --profile), and the stages keep
+counters (utils/metrics.py::count): K2's candidates (ncc_candidates), the
+hits K3 kept (ncc_hits), the waits on the card (ncc_host_waits, beside
+HOST_WAITS) and the caller's post-processing time a page, summed over the
+collect threads (ncc_post_ns: a counter, since a span a page would cost more
+than it measures). Every device
 tensor of a wave is allocated, used and freed on that one stream, so the
 caching allocator never hands a block to another stream while it is in use.
 
@@ -80,7 +85,7 @@ from focr_tpu_torch.ops.replay_kernels import (
 )
 from focr_tpu_torch.parallel import mesh as mesh_mod
 from focr_tpu_torch.utils.device import resolve_device, slot_scope
-from focr_tpu_torch.utils.metrics import span
+from focr_tpu_torch.utils.metrics import count, span
 
 WAVE = 8  # pages per device wave
 # waves in flight beyond the one being collected (focr_tpu/models/ncc.py:565-613
@@ -90,11 +95,13 @@ WAVE = 8  # pages per device wave
 # collect stage bounds the run; 2 stands as the least depth that keeps a wave
 # ready whenever a collection ends.
 PIPELINE_DEPTH = 2
-# pages of a wave collected at once (focr_tpu/models/ncc.py:552). A page's
-# collection reads K3's hits and assembles them in reference order, and the
-# caller's post-processing runs in the same task; both hold the GIL but for
-# the native post scan, so more threads buy little (PERF.md §5, 2 against 4)
-COLLECT_THREADS = 4
+# pages of a wave collected at once (focr_tpu/models/ncc.py:552 takes 4). A
+# page's collection reads K3's hits and assembles them in reference order, and
+# the caller's post-processing runs in the same task; both hold the GIL but for
+# the native post scan. On the card's 8-core host 2 threads collected as fast
+# as 4 or faster, with ~8% less of the process's CPU and runs no wider spread;
+# 1 was slower (PERF.md §6, the ncc cell)
+COLLECT_THREADS = 2
 HOST_WAITS = 0  # times the device stage waited on the card (dispatch + fetch)
 _waits_lock = threading.Lock()  # the dispatch and fetch threads both count
 
@@ -109,6 +116,7 @@ def _count_host_wait() -> None:
     global HOST_WAITS
     with _waits_lock:
         HOST_WAITS += 1
+    count("ncc_host_waits", 1)
 
 
 class _PinnedPool:
@@ -584,7 +592,12 @@ class NccMatcher:
 
         def collect_one(d):
             hits = self._collect_page(d, verbose, False, None, struct)
-            return post(hits) if post is not None else hits
+            if post is None:
+                return hits
+            t = time.perf_counter_ns()  # a counter, not a span: post runs once a page
+            lines = post(hits)
+            count("ncc_post_ns", time.perf_counter_ns() - t)
+            return lines
 
         def dispatch(sub: list) -> tuple[list, int]:
             return [(d, self._dispatch_wave(sub[d::D], slot=slots[d]))
@@ -718,6 +731,7 @@ class NccMatcher:
         hits_dev: list[torch.Tensor] = []
         held: list[torch.Tensor] = []
         thr_f64 = float(np.float32(self.threshold))
+        candidates = 0
         for (H, W), idxs in by_shape.items():
             inv = np.empty((len(idxs), H, W), np.uint8)
             for k, i in enumerate(idxs):
@@ -763,6 +777,7 @@ class NccMatcher:
                     off, hcnt, _ = (t.numpy() for t in split_counts(
                         to_host([head])[0], len(idxs), len(grp.needle_ids)))
                     total = int(off[-1])
+                    candidates += total
                     pos = compact_emit(mask, rcnt, row_off, total)
                     del mask, rcnt, row_off  # free before the next group's sweep
                     d_off, d_hcnt, _ = split_counts(head, len(idxs), len(grp.needle_ids))
@@ -779,6 +794,7 @@ class NccMatcher:
                         pp.append(None)  # this group's place, filled by _fetch_wave
             for k, i in enumerate(idxs):
                 per_page[i] = (batch[i], inv[k], plans[k], t0, crop)
+        count("ncc_candidates", candidates)
         hits, event = hits_dev, None
         if swept and cuda:
             # each group's buffer at an 8-byte boundary of one pinned buffer
@@ -806,14 +822,17 @@ class NccMatcher:
         if disp.event is not None:
             with span("focr_ncc_fetch_wave"):
                 disp.event.synchronize()
+        kept = 0
         for (plans, slot, grp, off, hcnt, total), h in zip(disp.swept, disp.hits):
             if disp.held:
                 h = h.clone()  # out of the pinned buffer, which goes back to the pool
             x, y, sim, counts, warn = (v.numpy() for v in split_replay(
                 h, total, len(plans), len(grp.needle_ids)))
+            kept += int(counts.sum())
             for k, pp in enumerate(plans):
                 a, b = off[k], off[k + 1]
                 pp[slot] = (grp, "sweep", (x[a:b], y[a:b], sim[a:b], counts[k], warn[k], hcnt[k]))
+        count("ncc_hits", kept)
         for buf in disp.held:
             disp.pool.give(buf)
         disp.held = []

@@ -216,8 +216,13 @@ def test_metrics_json_matches_focr_tpu(pages, mono_font_path, capsys, tmp_path, 
     assert got_out == want_out and got_out
     want = json.loads((tmp_path / "j.json").read_text())
     got = json.loads((tmp_path / "t.json").read_text())
-    assert set(got) == set(want) == {"tool", "pages", "decoded_pages", "lines", "hits", "errors",
-                                     "search_seconds", "engine"}
+    assert set(want) == {"tool", "pages", "decoded_pages", "lines", "hits", "errors",
+                         "search_seconds", "engine"}
+    assert set(got) == set(want) | {"counters"}
+    assert set(got["counters"]) == {"ncc_candidates", "ncc_hits", "ncc_host_waits", "ncc_post_ns",
+                                    "pages_mapped", "pages_decoded"}
+    # both readable pages are raw 8-bit PGMs, mapped; the bad one is read, and fails
+    assert (got["counters"]["pages_mapped"], got["counters"]["pages_decoded"]) == (2, 0)
     for k in ("tool", "pages", "decoded_pages", "lines", "hits", "engine"):
         assert got[k] == want[k], k
     assert got["pages"] == 3 and got["decoded_pages"] == 2 and got["hits"] > 0
