@@ -994,13 +994,13 @@ def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
         f"{n_cand} candidates, {n_hits} hits, native identical to plain (coordinates, f32 sim "
         f"bits, counts, warn); ms/page native {replay_ms:.3f} (plain {replay_plain_ms:.3f})")
 
-    # post-processing: the native sort + scan against the NumPy argsort + scan
+    # post-processing: one host-library call a page against the NumPy plain version
     structs = [matcher._collect_page(d, False, False, None, True) for d in wave]
     for hs in structs:
         a = post_model._winner_arrays(hs, 0.95, 5)
         b = post_model.winner_arrays_reference(hs, 0.95, 5)
         if not all(np.array_equal(u, v) for u, v in zip(a, b)):
-            raise AssertionError("native post-processing scan differs from the NumPy one")
+            raise AssertionError("native post-processing differs from the NumPy one")
     post_ms = median_s(lambda: [post_model._winner_arrays(h, 0.95, 5) for h in structs],
                        7) * 1e3 / B
     post_plain_ms = median_s(
@@ -1008,7 +1008,7 @@ def host_native_phase(matcher, pages, golden, host_build: dict) -> dict:
     text_ms = median_s(lambda: [post_model.process_hits_text(h, 0.95, 5) for h in structs],
                        7) * 1e3 / B
     log(f"[host-native] post-processing, {sum(map(len, structs)) // B} hits/page: the same "
-        f"winners; ms/page sort + scan native {post_ms:.3f} (plain {post_plain_ms:.3f}), "
+        f"winners; ms/page post_page native {post_ms:.3f} (plain {post_plain_ms:.3f}), "
         f"process_hits_text {text_ms:.3f}")
 
     # the collect pool (get_hits_many) against serial collection, in turns
@@ -1320,7 +1320,7 @@ def metrics_phase(cases: dict, pages, golden, want16: str) -> None:
               "pages_per_sec", "counters"}),
             ("ncc", ncc_main, ncc_argv, want16,
              {"tool", "pages", "decoded_pages", "lines", "hits", "errors", "search_seconds",
-              "engine"}),
+              "engine", "counters"}),
         )
         for name, main, argv, want, keys in runs:
             mpath, pdir = os.path.join(tmp, f"{name}.json"), os.path.join(tmp, f"{name}-trace")
@@ -1331,6 +1331,9 @@ def metrics_phase(cases: dict, pages, golden, want16: str) -> None:
                 m = json.load(f)
             if set(m) != keys or m["decoded_pages"] != len(pages) or m["tool"] != name:
                 raise AssertionError(f"metrics: {name} wrote {m}")
+            if name == "ncc" and m["counters"]["ncc_post_native"] != len(pages):
+                raise AssertionError(f"metrics: ncc posted {m['counters']} natively, "
+                                     f"not each of {len(pages)} pages")
             trace = os.path.join(pdir, TRACE_NAME)
             with open(trace) as f:
                 events = json.load(f)["traceEvents"]
@@ -2145,11 +2148,12 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = {**K.LAUNCHES, **R.LAUNCHES}
         waits = ncc_model.HOST_WAITS
-        native_calls = {k: ncc_cpu.NATIVE_CALLS[k] for k in ("replay_group", "post_sort_winners")}
-        # K3 replays every group K1 swept; the host replay is off the path
+        native_calls = {k: ncc_cpu.NATIVE_CALLS[k] for k in ("replay_group", "post_page")}
+        # K3 replays every group K1 swept; the host replay is off the path;
+        # each page is posted in one host-library call
         if (rc != 0 or not all(v for k, v in launches.items() if k != "ncc_sweep_mma")
                 or launches["ncc_sweep_mma"] or native_calls["replay_group"]
-                or not native_calls["post_sort_winners"]
+                or native_calls["post_page"] != len(pages)
                 or launches["ncc_replay"] != launches["ncc_sweep"]):
             raise AssertionError(f"in-process CLI: rc {rc}, launches {launches}, host library "
                                  f"calls {native_calls}")

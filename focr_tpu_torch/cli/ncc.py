@@ -114,7 +114,7 @@ def main(argv: list[str] | None = None) -> int:
     from focr_tpu_torch.utils.metrics import profiling, reset_counters
 
     reset_counters("ncc_candidates", "ncc_hits", "ncc_host_waits", "ncc_post_ns",
-                   "pages_mapped", "pages_decoded")
+                   "ncc_post_native", "pages_mapped", "pages_decoded")
 
     hinting = HintingOptions(full=True, size=args.text_size) if args.hinting else HintingOptions()
     ropts = RenderOptions(size=args.text_size, hinting=hinting)

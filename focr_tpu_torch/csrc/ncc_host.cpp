@@ -2,8 +2,9 @@
 // scans in C++ (g++ -O3 -march=native -ffp-contract=off -fopenmp, built by
 // native/build.py::build_host, bound with ctypes by native/ncc_cpu.py).
 //
-// Counterpart of focr_tpu/native/ncc_kernel.cpp, with the same five C entry
-// points and the same semantics, and one more for the page reader
+// Counterpart of focr_tpu/native/ncc_kernel.cpp: its search, replay and
+// winner-scan entry points with the same semantics; post-processing of a
+// whole page in one call (focr_post_page); and one more for the page reader
 // (focr_png_unfilter). This is host code, not a device kernel: the
 // matcher's device stage (K1 sweep + K2 compaction) returns candidate
 // positions, and focr_ncc_replay_pos_u8 decides each of them exactly here.
@@ -349,51 +350,79 @@ int64_t focr_post_winners(
     return nr;
 }
 
-// Sort + winner scan over UNSORTED hits (models/post.py::_winner_arrays): a
-// stable LSD radix sort of the non-negative composite keys (16-bit digits,
-// only as many passes as the largest key needs; stability is the
-// reference's stable sort_by_key, which the run anchor and the last-max tie
-// break both depend on), then focr_post_winners' scan over the sorted order.
-// Writes each run winner's ORIGINAL index, in run (key) order.
-int64_t focr_post_sort_winners(
-    const int64_t* key, const float* sim, int64_t n, int64_t overlap,
-    int64_t* win_out) {
-    if (n <= 0) return 0;
-    struct KI {
-        int64_t k;
-        int64_t i;  // original index, as wide as n
-    };
-    std::vector<KI> a(static_cast<size_t>(n)), b(static_cast<size_t>(n));
-    int64_t maxk = 0;
+// Post-processing of one page's hits (models/post.py::_post_page): the
+// reference's process_hits (ncc.rs:723-786) over the page's HitStruct arrays
+// in engine order, in one call:
+//   * anchor filter: keep the hits whose y holds any hit with f32 similarity
+//     >= anchor (ncc.rs:724-739), through a dense table over y;
+//   * stable sort by (y, x): a counting sort over x, then one over y, each
+//     with as many buckets as the page's largest coordinate needs. Stability
+//     is the reference's two stable sort_by_key passes (ncc.rs:741, 753),
+//     which the run anchor and the last-max tie break both depend on;
+//   * runs: partition_by (ncc.rs:1036-1052) anchors each run at its FIRST
+//     element; its members share the anchor's y and have x - x_anchor <=
+//     overlap (a negative overlap makes every hit its own run);
+//   * winners: the LAST maximal similarity of each run (Rust max_by,
+//     ncc.rs:763).
+// Writes each winner's original index, in run order, to win_out and the
+// code of its needle's letter (codes[nid]) to code_out (capacity n each), so
+// the caller's text needs no gather of its own; and the split points between
+// text lines (winner counts at which a new y starts) to bounds_out (capacity
+// n), their number to *n_bounds. Returns the number of winners; -1 when a
+// coordinate lies outside 0..65535 (the reference's u16 coordinates,
+// ncc.rs:66-72), -2 when a needle id lies outside the code table.
+int64_t focr_post_page(
+    const int64_t* y, const int64_t* x, const float* sim, const int32_t* nid, int64_t n,
+    float anchor, int64_t overlap, const uint32_t* codes, int64_t n_codes,
+    int64_t* win_out, uint32_t* code_out, int64_t* bounds_out, int64_t* n_bounds) {
+    *n_bounds = 0;
+    int64_t ymax = 0, xmax = 0;
     for (int64_t i = 0; i < n; ++i) {
-        a[i].k = key[i];
-        a[i].i = i;
-        if (key[i] > maxk) maxk = key[i];
+        if (static_cast<uint64_t>(y[i]) > 0xffff || static_cast<uint64_t>(x[i]) > 0xffff)
+            return -1;
+        if (nid[i] < 0 || nid[i] >= n_codes) return -2;
+        ymax = std::max(ymax, y[i]);
+        xmax = std::max(xmax, x[i]);
     }
-    int passes = 1;
-    while (passes < 4 && (maxk >> (16 * passes)) != 0) ++passes;
-    std::vector<int64_t> cnt(1 << 16);
-    for (int p = 0; p < passes; ++p) {
-        const int sh = 16 * p;
-        std::fill(cnt.begin(), cnt.end(), 0);
-        for (int64_t i = 0; i < n; ++i) ++cnt[(a[i].k >> sh) & 0xffff];
-        int64_t run = 0;
-        for (int64_t d = 0; d < (1 << 16); ++d) {
-            const int64_t c = cnt[d];
-            cnt[d] = run;
-            run += c;
-        }
-        for (int64_t i = 0; i < n; ++i) b[cnt[(a[i].k >> sh) & 0xffff]++] = a[i];
-        a.swap(b);
+    if (n <= 0) return 0;
+    struct Hit {
+        uint16_t x, y;
+        uint32_t i;  // original index (a page holds far fewer than 2^32 hits)
+    };
+    // per-thread scratch: the collect threads post pages concurrently
+    thread_local std::vector<uint8_t> anchored;
+    thread_local std::vector<int64_t> cx, cy;
+    thread_local std::vector<Hit> a, b;
+    anchored.assign(static_cast<size_t>(ymax) + 1, 0);
+    for (int64_t i = 0; i < n; ++i)
+        if (sim[i] >= anchor) anchored[y[i]] = 1;
+    cx.assign(static_cast<size_t>(xmax) + 2, 0);
+    cy.assign(static_cast<size_t>(ymax) + 2, 0);
+    a.resize(static_cast<size_t>(n));
+    int64_t m = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        if (!anchored[y[i]]) continue;
+        a[m++] = Hit{static_cast<uint16_t>(x[i]), static_cast<uint16_t>(y[i]),
+                     static_cast<uint32_t>(i)};
+        ++cx[x[i] + 1];
+        ++cy[y[i] + 1];
     }
-    int64_t nr = 0;
-    int64_t i = 0;
-    while (i < n) {
-        const int64_t anchor = a[i].k;
-        float best = sim[a[i].i];
-        int64_t bi = a[i].i;
-        int64_t j = i + 1;
-        while (j < n && a[j].k - anchor <= overlap) {
+    if (m == 0) return 0;
+    for (size_t k = 1; k < cx.size(); ++k) cx[k] += cx[k - 1];
+    for (size_t k = 1; k < cy.size(); ++k) cy[k] += cy[k - 1];
+    b.resize(static_cast<size_t>(m));
+    for (int64_t k = 0; k < m; ++k) b[cx[a[k].x]++] = a[k];
+    for (int64_t k = 0; k < m; ++k) a[cy[b[k].y]++] = b[k];
+
+    int64_t nr = 0, nb = 0;
+    int64_t k = 0;
+    while (k < m) {
+        const Hit h = a[k];
+        float best = sim[h.i];
+        int64_t bi = h.i;
+        int64_t j = k + 1;
+        while (j < m && a[j].y == h.y &&
+               static_cast<int64_t>(a[j].x) - static_cast<int64_t>(h.x) <= overlap) {
             const float s = sim[a[j].i];
             if (s >= best) {  // last max wins ties
                 best = s;
@@ -401,9 +430,12 @@ int64_t focr_post_sort_winners(
             }
             ++j;
         }
+        if (nr > 0 && h.y != a[k - 1].y) bounds_out[nb++] = nr;
+        code_out[nr] = codes[nid[bi]];
         win_out[nr++] = bi;
-        i = j;
+        k = j;
     }
+    *n_bounds = nb;
     return nr;
 }
 

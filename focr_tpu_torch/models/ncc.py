@@ -27,7 +27,8 @@ counters (utils/metrics.py::count): K2's candidates (ncc_candidates), the
 hits K3 kept (ncc_hits), the waits on the card (ncc_host_waits, beside
 HOST_WAITS) and the caller's post-processing time a page, summed over the
 collect threads (ncc_post_ns: a counter, since a span a page would cost more
-than it measures). Every device
+than it measures; models/post.py counts the pages it posts in one call of
+the host library in ncc_post_native). Every device
 tensor of a wave is allocated, used and freed on that one stream, so the
 caching allocator never hands a block to another stream while it is in use.
 

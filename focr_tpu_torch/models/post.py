@@ -12,6 +12,10 @@ process_hits/partition_by (reference src/ncc.rs:723-786, 1036-1052):
      ncc.rs:1036-1052), members satisfy |x_first - x| <= overlap — then keep
      the max-similarity hit per run, LAST max wins ties (Rust max_by with
      total_cmp returns the last maximal element, ncc.rs:753-766).
+
+process_hits is the object form. The array forms (process_hits_struct,
+process_hits_text) run all three steps in one call of the host library a
+page (_post_page), which releases the GIL for the call.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 
 from focr_tpu_torch.models.types import MatchWithLetter
 from focr_tpu_torch.native import ncc_cpu
+from focr_tpu_torch.utils.metrics import count
 
 T = TypeVar("T")
 
@@ -144,10 +149,35 @@ def run_winners_reference(lkey: np.ndarray, lsim: np.ndarray, ov: int, N: int) -
     )
 
 
-def _keyed_hits(hs, anchor_threshold: float, overlap: int):
-    """The anchor filter and the composite sort key shared by _winner_arrays
-    and its plain version: None when no hits survive, else (y, x, sim, nid,
-    key, ov) of the surviving hits in engine order."""
+def _post_page(hs, anchor_threshold: float, overlap: int):
+    """process_hits on HitStruct arrays in one call of the host library
+    (native/ncc_cpu.py::post_page): anchor filter, stable (y, x) sort,
+    run-anchored overlap partition and last-max dedup, all without the GIL.
+    Returns (each winner's index into ``hs`` in output order, its letter's
+    UTF-32 code, the split points between text lines); counts the page in
+    ``ncc_post_native``."""
+    out = ncc_cpu.post_page(hs.y, hs.x, hs.sim, hs.needle_id, _needle_tables(hs.matcher)[3],
+                            anchor_threshold, overlap)
+    count("ncc_post_native", 1)
+    return out
+
+
+def _winner_arrays(hs, anchor_threshold: float, overlap: int):
+    """Shared core of process_hits on HitStruct arrays (_post_page;
+    winner_arrays_reference is its plain version).
+
+    Returns None when no hits survive, else winner arrays
+    ``(wnid, wx, wy, wsim, line_bounds)`` in final output order, where
+    ``line_bounds`` are the split points between text lines."""
+    widx, _, line_bounds = _post_page(hs, anchor_threshold, overlap)
+    if not len(widx):
+        return None
+    return hs.needle_id[widx], hs.x[widx], hs.y[widx], hs.sim[widx], line_bounds
+
+
+def winner_arrays_reference(hs, anchor_threshold: float, overlap: int):
+    """The plain NumPy version of _winner_arrays: a stable comparison
+    argsort, then run_winners_reference."""
     anchor_f32 = np.float32(anchor_threshold)
     y = hs.y
     if len(y) == 0:
@@ -178,35 +208,6 @@ def _keyed_hits(hs, anchor_threshold: float, overlap: int):
     ov = min(int(overlap), xmax + 1)
     xbits = max(17, (xmax + max(ov, 0) + 2).bit_length())
     key = (y.astype(np.int64) << xbits) + x.astype(np.int64)
-    return y, x, sim, nid, key, ov
-
-
-def _winner_arrays(hs, anchor_threshold: float, overlap: int):
-    """Shared core of process_hits on HitStruct arrays: anchor filter,
-    stable y/x sorts, run-anchored overlap partition, last-max dedup — the
-    sort and the scan in one call of the host library
-    (native/ncc_cpu.py::post_sort_winners, as focr_tpu/models/post.py:187-199
-    calls it; winner_arrays_reference is its plain version).
-
-    Returns None when no hits survive, else winner arrays
-    ``(wnid, wx, wy, wsim, line_bounds)`` in final output order, where
-    ``line_bounds`` are the split points between text lines."""
-    k = _keyed_hits(hs, anchor_threshold, overlap)
-    if k is None:
-        return None
-    y, x, sim, nid, key, ov = k
-    widx = ncc_cpu.post_sort_winners(key, sim, ov)
-    wy = y[widx]
-    return nid[widx], x[widx], wy, sim[widx], np.flatnonzero(np.diff(wy)) + 1
-
-
-def winner_arrays_reference(hs, anchor_threshold: float, overlap: int):
-    """The plain NumPy version of _winner_arrays: a stable comparison
-    argsort, then run_winners_reference."""
-    k = _keyed_hits(hs, anchor_threshold, overlap)
-    if k is None:
-        return None
-    y, x, sim, nid, key, ov = k
     N = len(y)
     order = np.argsort(key, kind="stable")
     lkey, lx, lsim, lnid, lyy = (
@@ -236,7 +237,7 @@ def process_hits_struct(hs, anchor_threshold: float, overlap: int) -> list[list[
     # arrays, convert to python scalars in bulk (.tolist() — per-element
     # numpy indexing dominated this loop on dense pages), then slice into
     # lines by the precomputed boundaries
-    letters, nws, nhs = _needle_tables(hs.matcher)
+    letters, nws, nhs, _ = _needle_tables(hs.matcher)
     cols = zip(
         letters[wnid].tolist(),
         wx.tolist(),
@@ -257,20 +258,16 @@ def process_hits_struct(hs, anchor_threshold: float, overlap: int) -> list[list[
 def process_hits_text(hs, anchor_threshold: float, overlap: int) -> list[str]:
     """Text-only process_hits: each output line is the concatenation of the
     surviving hits' letters (exactly what the reference prints for non---csv
-    runs, ncc.rs:868-877) — no per-hit objects are materialized, which is the
-    dominant post-processing cost on dense pages (~4k winners/page)."""
-    w = _winner_arrays(hs, anchor_threshold, overlap)
-    if w is None:
+    runs, ncc.rs:868-877). The host library writes the winners' letters as
+    UTF-32 codes; one decode makes them a string, cut at the line bounds: no
+    Python object is made a winner (dense pages keep ~4k winners), and no
+    NumPy gather gives up the GIL and waits to take it back."""
+    _, wcodes, line_bounds = _post_page(hs, anchor_threshold, overlap)
+    if not len(wcodes):
         return []
-    wnid, _, _, _, line_bounds = w
-    letters, _, _ = _needle_tables(hs.matcher)
-    s = "".join(letters[wnid].tolist())
-    out: list[str] = []
-    prev = 0
-    for b in [*line_bounds.tolist(), len(s)]:
-        out.append(s[prev:b])
-        prev = b
-    return out
+    s = wcodes.tobytes().decode("utf-32-le")
+    cuts = [0, *line_bounds.tolist(), len(s)]
+    return [s[a:b] for a, b in zip(cuts, cuts[1:])]
 
 
 def line_matches_truth(got: str, want: str) -> bool:
@@ -293,8 +290,9 @@ def line_matches_truth(got: str, want: str) -> bool:
     )
 
 
-def _needle_tables(matcher) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Per-needle (letter, nw, nh) lookup arrays, cached on the matcher."""
+def _needle_tables(matcher) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Per-needle (letter, nw, nh, the letter's UTF-32 code) lookup arrays,
+    cached on the matcher."""
     tables = getattr(matcher, "_post_tables", None)
     if tables is None:
         needles = matcher.needles
@@ -302,6 +300,8 @@ def _needle_tables(matcher) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
             np.array([nd.letter for nd in needles]),
             np.array([nd.pixels.shape[1] for nd in needles], dtype=np.int64),
             np.array([nd.pixels.shape[0] for nd in needles], dtype=np.int64),
+            np.array([ord(nd.letter) for nd in needles], dtype=np.uint32),
         )
         matcher._post_tables = tables
     return tables
+

@@ -3,8 +3,8 @@ interface loaded with ctypes:
 
   the CUDA kernels (csrc/*.cu, nvcc) — the device stages of every path,
       the ncc exact f64 replay (K3) included;
-  the ncc host library (csrc/ncc_host.cpp, g++) — the post-processing scans
-      and the all-host search (native/ncc_cpu.py), the PNG reader's row
+  the ncc host library (csrc/ncc_host.cpp, g++) — post-processing (a page's
+      in one call) and the all-host search (native/ncc_cpu.py), the PNG reader's row
       unfiltering (io/images.py), and the host copy of the exact replay that
       the tests hold K3 against.
 
@@ -234,9 +234,15 @@ def load_host() -> ctypes.CDLL:
                 i64,  # OpenMP team size (0: the runtime's default)
             ]
             lib.focr_ncc_replay_pos_u8.restype = None
-            for fn in (lib.focr_post_winners, lib.focr_post_sort_winners):
-                fn.argtypes = [p, p, i64, i64, p]  # key, sim, n, overlap, out
-                fn.restype = i64
+            lib.focr_post_winners.argtypes = [p, p, i64, i64, p]  # key, sim, n, overlap, out
+            lib.focr_post_winners.restype = i64
+            lib.focr_post_page.argtypes = [
+                p, p, p, p, i64,  # y, x, sim, needle ids, n
+                ctypes.c_float, i64,  # anchor, overlap
+                p, i64,  # the needles' letter codes, their number
+                p, p, p, p,  # out winners, their codes, line bounds, their number
+            ]
+            lib.focr_post_page.restype = i64
             lib.focr_png_unfilter.argtypes = [p, i64, i64, i64, p]  # in, rows, stride, bpp, out
             lib.focr_png_unfilter.restype = i64
             _host_lib = lib

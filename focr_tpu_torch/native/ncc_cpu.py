@@ -8,8 +8,9 @@ values:
                        path, where K3 (ops/replay_kernels.py) replays on
                        the card: the yardstick the tests and chip_smoke.py
                        hold K3 against
-  post_sort_winners  — the stable radix sort + overlap-run winner scan of
-                       post-processing (models/post.py::_winner_arrays)
+  post_page          — post-processing of one page's hits: anchor filter,
+                       stable (y, x) sort, overlap-run winners and line
+                       split (models/post.py::_post_page)
   post_winners       — the winner scan over sorted keys (post.py::_run_winners)
   NativeSearcher     — the all-host search of ``--engine native``
 
@@ -34,8 +35,7 @@ from focr_tpu_torch.native.build import load_host
 from focr_tpu_torch.oracle.ncc_oracle import Searcher as OracleSearcher
 
 NATIVE_CALLS = {
-    "search": 0, "search_many": 0, "replay_group": 0, "post_winners": 0,
-    "post_sort_winners": 0,
+    "search": 0, "search_many": 0, "replay_group": 0, "post_winners": 0, "post_page": 0,
 }
 _calls_lock = threading.Lock()  # collect threads count concurrently
 # OpenMP threads of one replay_group call (0: the runtime's default team,
@@ -194,28 +194,42 @@ def replay_group(
     return out_x, out_y, out_sim, counts, warn
 
 
-def _scan(name: str, key: np.ndarray, sim: np.ndarray, overlap: int) -> np.ndarray:
-    key = np.ascontiguousarray(key, dtype=np.int64)
+def post_page(
+    y: np.ndarray, x: np.ndarray, sim: np.ndarray, nid: np.ndarray, codes: np.ndarray,
+    anchor: float, overlap: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """process_hits (ncc.rs:723-786) over one page's hits in engine order:
+    ``y``, ``x`` the coordinates, ``sim`` the f32 similarities, ``nid`` the
+    needle ids, ``codes`` each needle's letter as a u32 code. Returns (each
+    run winner's ORIGINAL index in output order, i64; its letter's code,
+    u32; the split points between text lines in that list, i64). The
+    anchor is compared in float32; coordinates lie in 0..65535, the
+    reference's u16 (ncc.rs:66-72), and needle ids index ``codes``, else
+    ValueError."""
+    y = np.ascontiguousarray(y, dtype=np.int64)
+    x = np.ascontiguousarray(x, dtype=np.int64)
     sim = np.ascontiguousarray(sim, dtype=np.float32)
-    if key.shape != sim.shape or key.ndim != 1:
-        raise ValueError(f"{name}: key and sim must be 1-D of one length")
-    out = np.empty(len(key), dtype=np.int64)
-    _count(name)
-    nr = getattr(load_host(), f"focr_{name}")(
-        _ptr(key), _ptr(sim), len(key), int(overlap), _ptr(out)
-    )
-    return out[:nr]
-
-
-def post_sort_winners(key: np.ndarray, sim: np.ndarray, overlap: int) -> np.ndarray:
-    """Stable radix sort + overlap-run winner scan over UNSORTED hits:
-    ``key`` is the composite (y << xbits) + x key per hit in engine order,
-    ``sim`` the f32 similarities. Returns each run winner's ORIGINAL index,
-    in run (key) order: a stable sort followed by post_winners, in one
-    call."""
-    if len(key) and np.min(key) < 0:
-        raise ValueError("post_sort_winners: keys must be non-negative")
-    return _scan("post_sort_winners", key, sim, overlap)
+    nid = np.ascontiguousarray(nid, dtype=np.int32)
+    codes = np.ascontiguousarray(codes, dtype=np.uint32)
+    if y.ndim != 1 or any(a.shape != y.shape for a in (x, sim, nid)) or codes.ndim != 1:
+        raise ValueError("post_page: y, x, sim and nid must be 1-D of one length")
+    lib = load_host()
+    n = len(y)
+    win = np.empty(n, dtype=np.int64)
+    wcodes = np.empty(n, dtype=np.uint32)
+    bounds = np.empty(n, dtype=np.int64)
+    nb = np.zeros(1, dtype=np.int64)
+    # u16 coordinates: any overlap past 65535 acts as 65536, any negative as -1
+    ov = min(max(int(overlap), -1), 1 << 16)
+    _count("post_page")
+    nw = lib.focr_post_page(_ptr(y), _ptr(x), _ptr(sim), _ptr(nid), n,
+                            float(np.float32(anchor)), ov, _ptr(codes), len(codes),
+                            _ptr(win), _ptr(wcodes), _ptr(bounds), _ptr(nb))
+    if nw == -1:
+        raise ValueError("post_page: a coordinate lies outside 0..65535")
+    if nw < 0:
+        raise ValueError(f"post_page: a needle id lies outside 0..{len(codes) - 1}")
+    return win[:nw], wcodes[:nw], bounds[: int(nb[0])]
 
 
 def post_winners(key: np.ndarray, sim: np.ndarray, overlap: int) -> np.ndarray:
@@ -223,10 +237,17 @@ def post_winners(key: np.ndarray, sim: np.ndarray, overlap: int) -> np.ndarray:
     (y << xbits) + x key (i64, ascending), ``sim`` the f32 similarities in
     the same order. Returns the winner's index per run, in run order
     (partition_by + last-max semantics, ncc.rs:753-766, 1036-1052)."""
-    return _scan("post_winners", key, sim, overlap)
+    key = np.ascontiguousarray(key, dtype=np.int64)
+    sim = np.ascontiguousarray(sim, dtype=np.float32)
+    if key.shape != sim.shape or key.ndim != 1:
+        raise ValueError("post_winners: key and sim must be 1-D of one length")
+    out = np.empty(len(key), dtype=np.int64)
+    _count("post_winners")
+    nr = load_host().focr_post_winners(_ptr(key), _ptr(sim), len(key), int(overlap), _ptr(out))
+    return out[:nr]
 
 
 __all__ = [
-    "NATIVE_CALLS", "NativeSearcher", "post_sort_winners", "post_winners",
+    "NATIVE_CALLS", "NativeSearcher", "post_page", "post_winners",
     "replay_group", "reset_native_calls",
 ]

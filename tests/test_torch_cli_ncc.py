@@ -220,7 +220,11 @@ def test_metrics_json_matches_focr_tpu(pages, mono_font_path, capsys, tmp_path, 
                          "search_seconds", "engine"}
     assert set(got) == set(want) | {"counters"}
     assert set(got["counters"]) == {"ncc_candidates", "ncc_hits", "ncc_host_waits", "ncc_post_ns",
-                                    "pages_mapped", "pages_decoded"}
+                                    "ncc_post_native", "pages_mapped", "pages_decoded"}
+    # the device engine posts each readable page in one host-library call
+    # (text and --csv); the other engines post objects
+    device = "--engine" not in extra and "--rust" not in extra
+    assert got["counters"]["ncc_post_native"] == (2 if device else 0)
     # both readable pages are raw 8-bit PGMs, mapped; the bad one is read, and fails
     assert (got["counters"]["pages_mapped"], got["counters"]["pages_decoded"]) == (2, 0)
     for k in ("tool", "pages", "decoded_pages", "lines", "hits", "engine"):
@@ -228,6 +232,20 @@ def test_metrics_json_matches_focr_tpu(pages, mono_font_path, capsys, tmp_path, 
     assert got["pages"] == 3 and got["decoded_pages"] == 2 and got["hits"] > 0
     assert [e["page"] for e in got["errors"]] == [e["page"] for e in want["errors"]] == [str(bad)]
     assert got["search_seconds"] > 0
+
+
+def test_post_native_counts_every_page(pages, mono_font_path, capsys, tmp_path):
+    """A multi-page text run: focr_tpu's stdout, and --metrics-json's
+    ncc_post_native counts every page posted, each in one host-library call."""
+    import json
+
+    argv = ["-i", *pages, *pages, pages[1], "-f", mono_font_path, "-t", "13", "-a", ALPHA]
+    _, want_out, _ = _run(jax_main, argv, capsys)
+    rc, got_out, _ = _run(torch_main, [*argv, "--device", "cpu", "--metrics-json",
+                                       str(tmp_path / "m.json")], capsys)
+    assert rc == 0 and got_out == want_out and got_out
+    counters = json.loads((tmp_path / "m.json").read_text())["counters"]
+    assert counters["ncc_post_native"] == 5 and counters["ncc_post_ns"] > 0
 
 
 def _masked(err: str) -> str:

@@ -3,8 +3,11 @@ against focr_tpu's native tier and against the port's plain NumPy versions,
 on the CPU, exactly: f32 similarity bytes, coordinates, counts, warn flags
 and winner indices."""
 
+import ctypes
 import sys
 import threading
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -19,7 +22,9 @@ from focr_tpu.oracle.ncc_direct import direct_search as jax_direct_search
 from focr_tpu_torch.fonts.ft import Face as TFace
 from focr_tpu_torch.models import ncc as torch_ncc
 from focr_tpu_torch.models import post as torch_post
-from focr_tpu_torch.models.types import MAX_MATCHES, RenderOptions as TRenderOptions
+from focr_tpu_torch.models.types import (
+    MAX_MATCHES, MatchWithLetter, RenderOptions as TRenderOptions,
+)
 from focr_tpu_torch.native import build, ncc_cpu
 from focr_tpu_torch.ops.ncc import word_stride
 from focr_tpu_torch.ops.ncc_kernels import compact_emit
@@ -28,6 +33,8 @@ from focr_tpu_torch.oracle.ncc_direct import direct_search
 from focr_tpu_torch.oracle.ncc_oracle import Searcher
 
 torch.set_num_threads(2)
+
+GOLDEN = str(Path(__file__).resolve().parent.parent / "portbench" / "data" / "torch_ncc_golden.npz")
 
 
 def _replay_key(out, starts):
@@ -219,15 +226,15 @@ def test_native_searcher_cap_and_width_limit(capsys):
         n.search_many(wide[None], 0.5)
 
 
-def _keys(seed, n_max=4000, shift=17, sort=False):
+def _keys(seed, n_max=4000):
+    """Sorted composite (y << 17) + x keys and their similarities."""
     rng = np.random.default_rng(seed)
     N = int(rng.integers(1, n_max))
-    ys = rng.integers(0, 7, N).astype(np.int64) << shift
+    ys = rng.integers(0, 7, N).astype(np.int64) << 17
     xs = rng.integers(0, 600, N).astype(np.int64)
-    key = np.sort(ys + xs) if sort else ys + xs
     # quantized sims force plenty of exact ties (the last-max surface)
     sim = (rng.integers(0, 8, N) / 8.0).astype(np.float32)
-    return key, sim
+    return np.sort(ys + xs), sim
 
 
 OVERLAPS = [-1, 0, 5, 1 << 40]
@@ -236,21 +243,174 @@ OVERLAPS = [-1, 0, 5, 1 << 40]
 @pytest.mark.parametrize("ov", OVERLAPS)
 @pytest.mark.parametrize("seed", range(3))
 def test_post_winners_match_numpy(seed, ov):
-    key, sim = _keys(seed, sort=True)
+    key, sim = _keys(seed)
     want = torch_post.run_winners_reference(key, sim, ov, len(key))
     np.testing.assert_array_equal(ncc_cpu.post_winners(key, sim, ov), want)
     np.testing.assert_array_equal(torch_post._run_winners(key, sim, ov, len(key)), want)
 
 
+class _Letters:
+    """A matcher's needle list as post-processing reads it: each needle's
+    letter and pixel shape."""
+
+    def __init__(self, letters):
+        self.needles = [
+            SimpleNamespace(letter=c, pixels=np.zeros((13, 8 + i % 2), np.uint8))
+            for i, c in enumerate(letters)
+        ]
+
+
+ANCHOR = float(np.float32(0.95))
+BELOW = float(np.nextafter(np.float32(0.95), np.float32(0)))
+
+
+def _hits(nid, x, y, sim, matcher):
+    return torch_ncc.HitStruct(
+        needle_id=np.asarray(nid, np.int32), x=np.asarray(x, np.int64),
+        y=np.asarray(y, np.int64), sim=np.asarray(sim, np.float32), matcher=matcher)
+
+
+def _post_case(case, golden):
+    """A list of HitStructs in engine order (hits grouped by needle, needles
+    ascending) for one case of test_post_page_matches_reference."""
+    rng = np.random.default_rng(len(case))
+    m = _Letters("ABCDEFGHIJKL")
+    if case == "golden":
+        return golden
+    if case == "empty":
+        return [_hits([], [], [], [], m)]
+    N = 3000
+    nid = np.sort(rng.integers(0, 12, N))
+    if case == "below-anchor":
+        return [_hits(nid, rng.integers(0, 600, N), rng.integers(0, 8, N) * 15 + 9,
+                      rng.choice([0.8, 0.9, BELOW], N), m)]
+    if case == "random":
+        return [_hits(nid, rng.integers(0, 600, N), rng.integers(0, 8, N) * 15 + 9,
+                      rng.integers(70, 101, N) / 100.0, m)]
+    if case == "u16":
+        # coordinates at both ends of the reference's u16 range
+        x = np.where(rng.random(N) < 0.5, rng.integers(0, 12, N), 65535 - rng.integers(0, 12, N))
+        y = rng.choice([0, 1, 30000, 65534, 65535], N)
+        return [_hits(nid, x, y, rng.choice([0.9, 0.95, 1.0], N), m)]
+    if case == "duplicates":
+        # (y, x) pairs repeated across needles with equal f32 similarities:
+        # the later hit in engine order wins each run
+        pair = _hits([0, 1, 2], [5, 5, 40], [10, 10, 10], [0.97, 0.97, 0.96], m)
+        return [pair, _hits(nid, rng.integers(0, 4, N), rng.choice([3, 18], N),
+                            rng.choice([0.95, 0.97], N), m)]
+    if case == "at-anchor":
+        # lines whose best hit is exactly the f32 anchor keep their hits;
+        # lines whose best is one ulp below it lose them
+        y = rng.integers(0, 10, N) * 15
+        best = np.where(y % 30 == 0, ANCHOR, BELOW)
+        return [_hits(nid, rng.integers(0, 300, N), y,
+                      np.where(rng.random(N) < 0.3, best, 0.85), m)]
+    assert case == "lines"
+    # many lines, half of them with no anchor at all
+    y = rng.integers(0, 40, N) * 13
+    sim = np.where(y % 26 == 0, rng.choice([0.9, 0.96, 0.99], N), rng.choice([0.8, 0.9], N))
+    return [_hits(nid, rng.integers(0, 700, N), y, sim, m)]
+
+
+@pytest.fixture(scope="module")
+def golden_hits():
+    """The hits the port's matcher gives on the top 200 rows (the first
+    lines of text) of the ncc cell's first two dense pages, with the cell's
+    bank and thresholds."""
+    from focr_tpu_torch.fonts.bank import load_needle_bank
+    from focr_tpu_torch.models.types import NCC_DEFAULT_ALPHABET
+
+    with np.load(GOLDEN, allow_pickle=False) as z:
+        pages = [p[:200].copy() for p in z["pages"][:2]]
+    needles, _ = load_needle_bank(GOLDEN)
+    tm = torch_ncc.NccMatcher(None, NCC_DEFAULT_ALPHABET, TRenderOptions(size=13.0), x_bits=2,
+                              threshold=0.8, device="cpu", needles=needles)
+    return tm.get_hits_many(pages, struct=True)
+
+
+POST_CASES = ["empty", "below-anchor", "random", "u16", "duplicates", "at-anchor", "lines",
+              "golden"]
+
+
 @pytest.mark.parametrize("ov", OVERLAPS)
-@pytest.mark.parametrize("shift", [17, 33, 49], ids=["2-pass", "3-pass", "4-pass"])
-def test_post_sort_winners_match_sort_then_scan(shift, ov):
-    """Unsorted keys with duplicates (the stability surface); keys past 2³²
-    and 2⁴⁸ force the radix sort's third and fourth digit passes."""
-    key, sim = _keys(100 + shift, shift=shift)
-    order = np.argsort(key, kind="stable")
-    want = order[torch_post.run_winners_reference(key[order], sim[order], ov, len(key))]
-    np.testing.assert_array_equal(ncc_cpu.post_sort_winners(key, sim, ov), want)
+@pytest.mark.parametrize("case", POST_CASES)
+def test_post_page_matches_reference(case, ov, request):
+    """One host-library call a page (post_page) against the plain versions:
+    _winner_arrays against winner_arrays_reference, and process_hits_text
+    and process_hits_struct against the object-form process_hits."""
+    golden = request.getfixturevalue("golden_hits") if case == "golden" else None
+    assert not isinstance(build.load_host(), ctypes.PyDLL)  # a CDLL drops the GIL
+    for hs in _post_case(case, golden):
+        calls = ncc_cpu.NATIVE_CALLS["post_page"]
+        a = torch_post._winner_arrays(hs, 0.95, ov)
+        b = torch_post.winner_arrays_reference(hs, 0.95, ov)
+        assert (a is None) == (b is None)
+        for ai, bi in zip(a or (), b or ()):
+            np.testing.assert_array_equal(ai, bi)
+        letters = [nd.letter for nd in hs.matcher.needles]
+        objs = [MatchWithLetter(letters[i], int(x), int(y), nd.pixels.shape[1],
+                                nd.pixels.shape[0], float(s))
+                for i, x, y, s, nd in zip(hs.needle_id.tolist(), hs.x.tolist(), hs.y.tolist(),
+                                          hs.sim.tolist(),
+                                          (hs.matcher.needles[i] for i in hs.needle_id))]
+        want = torch_post.process_hits(objs, 0.95, ov)
+        assert torch_post.process_hits_text(hs, 0.95, ov) == [
+            "".join(m.letter for m in line) for line in want]
+        assert torch_post.process_hits_struct(hs, 0.95, ov) == want
+        assert ncc_cpu.NATIVE_CALLS["post_page"] == calls + 3
+    if case == "duplicates" and ov >= 0:
+        assert torch_post.process_hits_text(_post_case(case, None)[0], 0.95, ov)[0][0] == "B"
+    assert (b is None) == (case in ("empty", "below-anchor"))
+
+
+def test_post_page_rejects_out_of_range_input():
+    """Coordinates outside the reference's u16 range (ncc.rs:66-72), and
+    needle ids outside the code table, raise."""
+    m = _Letters("AB")
+    codes = torch_post._needle_tables(m)[3]
+    for x, y in ((65536, 3), (3, 65536), (-1, 3), (3, -1)):
+        with pytest.raises(ValueError, match="0..65535"):
+            ncc_cpu.post_page(np.array([3, y]), np.array([3, x]), np.ones(2, np.float32),
+                              np.zeros(2, np.int32), codes, 0.95, 5)
+    for bad in (-1, 2):
+        with pytest.raises(ValueError, match="needle id"):
+            ncc_cpu.post_page(np.array([3, 3]), np.array([3, 9]), np.ones(2, np.float32),
+                              np.array([0, bad], np.int32), codes, 0.95, 5)
+    assert torch_post.process_hits_text(_hits([0, 1], [0, 65535], [65535, 65535], [1, 1], m),
+                                        0.95, 5) == ["AB"]
+
+
+def test_post_page_threads_agree():
+    """The collect threads post pages at once: 8 threads, each posting its
+    own pages of other sizes over and over (each thread's scratch grows and
+    shrinks), get what posting them one after another gives."""
+    m = _Letters("ABCDEFGHIJKL")
+    rng = np.random.default_rng(5)
+    pages = []
+    for k in range(16):
+        N = int(rng.integers(1, 6000))
+        pages.append(_hits(np.sort(rng.integers(0, 12, N)), rng.integers(0, 40 + 200 * k, N),
+                           rng.integers(0, 3 + k, N) * 15, rng.integers(80, 101, N) / 100.0, m))
+    want = [torch_post.process_hits_text(hs, 0.95, 5) for hs in pages]
+    got = {}
+
+    def work(t):
+        mine = [(t + 3 * i) % len(pages) for i in range(len(pages))]
+        got[t] = all(torch_post.process_hits_text(pages[i], 0.95, 5) == want[i]
+                     for _ in range(10) for i in mine)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert got == {t: True for t in range(8)} and any(want)
 
 
 @pytest.mark.parametrize("ov", OVERLAPS)
@@ -265,7 +425,7 @@ def test_winner_arrays_match_numpy(ov):
             x=rng.integers(0, 600, N).astype(np.int64),
             y=(rng.integers(0, 8, N) * 15 + 9).astype(np.int64),
             sim=(rng.integers(70, 101, N) / 100.0).astype(np.float32),
-            matcher=None,
+            matcher=_Letters([chr(65 + i) for i in range(50)]),
         )
         a = torch_post._winner_arrays(hs, 0.95, ov)
         b = torch_post.winner_arrays_reference(hs, 0.95, ov)

@@ -145,8 +145,9 @@ def test_counters_and_spans_once_a_call(pool, capsys, tmp_path):
                      json.loads((prof / TRACE_NAME).read_text())["traceEvents"]))
     (first, events), (second, _) = runs
     assert set(first) == {"ncc_candidates", "ncc_hits", "ncc_host_waits", "ncc_post_ns",
-                          "pages_mapped", "pages_decoded"}
+                          "ncc_post_native", "pages_mapped", "pages_decoded"}
     assert first["pages_mapped"] == 3 and first["pages_decoded"] == 0
+    assert first["ncc_post_native"] == 3  # each page posted in one host-library call
     assert first["ncc_candidates"] >= first["ncc_hits"] > 0
     waves = -(-3 // torch_ncc.WAVE)
     assert first["ncc_host_waits"] == waves * (len(CONFIG["needles"]["groups"]) + 1)
